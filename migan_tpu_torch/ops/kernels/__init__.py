@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels for the three fused blocks of the main path,
+with their plain PyTorch versions and launch counters.
+
+Importing this package builds nothing; the library is compiled at the
+first launch on a CUDA tensor (`_build.load_library`).
+"""
+
+from . import downblock, sepconv, upblock
+from .downblock import fused_down_block
+from .sepconv import fused_block
+from .upblock import fused_up_block
+
+_COUNTERS = (sepconv.COUNTER, downblock.COUNTER, upblock.COUNTER)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {c.name: c.count for c in _COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        c.count = 0
+
+
+__all__ = ["fused_block", "fused_down_block", "fused_up_block",
+           "launch_counts", "reset_launch_counts"]

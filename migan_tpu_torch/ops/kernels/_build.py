@@ -1,0 +1,146 @@
+"""Build and load the CUDA kernels of `migan_tpu_torch/csrc/`.
+
+The `.cu` files have plain C entry points. At first use they are compiled
+with nvcc for sm_90a into one shared library under `build/kernels/` at the
+repository root (listed in `.gitignore`), named by a hash of the sources
+and flags, and loaded with ctypes. Nothing here runs at import time, and
+nothing is built for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]           # migan_tpu_torch/
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (each returns the launch's CUDA error).
+SIGNATURES = {
+    "migan_sepconv": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P],
+    "migan_downblock": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "migan_upblock": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _I, _P],
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc); set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmigan_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists.
+    Returns the library's path."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               *map(str, cu)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with every entry
+    point's argument types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def timed_build() -> float:
+    """Build and load the library; seconds taken (0 if already loaded)."""
+    t0 = time.perf_counter()
+    load_library()
+    return time.perf_counter() - t0
+
+
+@dataclass
+class LaunchCounter:
+    """Times a kernel was launched; each wrapper adds one per launch."""
+
+    name: str
+    count: int = 0
+
+
+def check_cuda_args(name: str, dtype: torch.dtype, device: torch.device,
+                    **tensors) -> None:
+    """Raise unless every tensor lies on `device`, has `dtype` and is
+    contiguous. A channel count too large for a block's shared memory is
+    rejected by the launch itself (see `raise_on_error`)."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    for k, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {k} on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {k} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {k} is not contiguous")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
