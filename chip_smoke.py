@@ -7,16 +7,18 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
 
   1. runs each kernel against its plain PyTorch version on the card at
      migan-512's shapes (batch 2; the top level, C = 64, and a C = 512
-     level), in float32 with TF32 off and in bfloat16, and times it
-     against the plain version at batch 8;
+     level), in float32 with TF32 off and in bfloat16; then times sepconv
+     and downblock against their plain versions at every shape a migan-512
+     forward launches them at, and upblock at its two cases, at N = 1 and
+     N = 8 in both dtypes, holding each result against the plain one;
   2. writes seeded random migan-512 / migan-256 weights (non-zero noise
      strengths) with `save_npz`, loads them through the demo's
      `load_model`, runs the kernel chain at N = 1 and N = 8 (migan-256 at
-     N = 8), holds it against the plain generator on the same card, and
-     checks that every forward launched 19 (migan-512) or 15 (migan-256)
-     kernels;
+     N = 8) in float32 and migan-512 at N = 8 in bfloat16, holds each
+     against the plain generator on the same card, and checks that every
+     forward launched 19 (migan-512) or 15 (migan-256) kernels;
   3. times the kernel path and the plain path (median of 20 forwards
-     after warm-up, in turns).
+     after warm-up, in turns), float32 and, for migan-512, bfloat16.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -53,6 +55,12 @@ CLAMP_ATOL = 1e-3
 # Kernel chain vs plain generator, float32: ~50 layers of clamp-256
 # activations (the tolerance of tests/test_migan_inference.py).
 GEN_ATOL, GEN_RTOL = 2e-3, 1e-3
+# bfloat16 chain: its relative L2 distance from the float32 plain output
+# may be at most BF16_FACTOR times the plain bfloat16 path's own. Both
+# round to 8 bits at every layer, in other places, so neither matches
+# float32 elementwise; the kernel chain must not lose more than the plain
+# path does.
+BF16_FACTOR = 2.0
 EXPECTED_LAUNCHES = {512: {"sepconv": 9, "downblock": 5, "upblock": 5},
                      256: {"sepconv": 7, "downblock": 4, "upblock": 4}}
 SOURCES = {
@@ -64,6 +72,7 @@ SOURCES = {
     "upblock": ("migan_tpu_torch/csrc/upblock.cu",
                 "migan_tpu/ops/pallas/upblock.py:303"),
 }
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -176,14 +185,70 @@ def phase_kernels(results: dict) -> None:
             if dtype == torch.float32:
                 results[name]["max_abs_err"] = max(
                     results[name]["max_abs_err"], err)
-    # times at batch 8, float32 (the generator's dtype below)
-    for name, label, fk, fp in kernel_cases(8, torch.float32, gen):
-        ms, plain_ms = cuda_ms(fk), cuda_ms(fp)
-        print(f"phase1 time {name} {label} float32: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
-        if "ms" not in results[name]:        # the top level, listed first
-            results[name]["ms"] = ms
-            results[name]["plain_ms"] = plain_ms
+    # times at every main-path shape, N = 1 and 8, both dtypes
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 8):
+            for name, label, fk, fp in timed_cases(n, dtype):
+                ms, plain_ms = cuda_ms(fk), cuda_ms(fp)
+                got, want = fk(), fp()
+                torch.cuda.synchronize()
+                pairs = zip(got, want) if isinstance(got, tuple) else [
+                    (got, want)]
+                err = max(max_err(a, b, dtype, f"{name} {label}")
+                          for a, b in pairs)
+                dt = str(dtype)[6:]
+                print(f"phase1 time {name} {label} {dt}: kernel {ms:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms, plain/kernel "
+                      f"{plain_ms / ms:.2f}x, max|diff| {err:.3e}",
+                      flush=True)
+                results[name]["shapes"].append(
+                    {"shape": label, "dtype": dt, "ms": ms,
+                     "plain_ms": plain_ms, "max_abs_err": err})
+                if dtype == torch.float32:
+                    results[name]["max_abs_err"] = max(
+                        results[name]["max_abs_err"], err)
+                if "ms" not in results[name] and n == 8:
+                    # the top level, float32, N = 8: listed first
+                    results[name]["ms"] = ms
+                    results[name]["plain_ms"] = plain_ms
+
+
+def timed_cases(n: int, dtype):
+    """(kernel, label, kernel call, plain call): sepconv and downblock at
+    every shape of a migan-512 forward (top level first), upblock at the
+    two cases of `kernel_cases`. Inputs are made on the card."""
+    from migan_tpu_torch.models.migan_inference import GeneratorConfig
+    from migan_tpu_torch.models.migan_kernels import kernel_shapes
+    from migan_tpu_torch.ops.kernels import downblock, sepconv
+
+    gen = torch.Generator("cuda").manual_seed(SEED + n)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    seen, cases = set(), []
+    for shape in kernel_shapes(GeneratorConfig(resolution=512)):
+        name, h, w, c, o, fa = shape
+        if name == "upblock" or shape in seen:
+            continue
+        seen.add(shape)
+        args = (r(n, h, w, c), r(3, 3, c, scale=1 / 3), r(c, scale=1 / 3),
+                r(c, o, scale=c ** -.5))
+        if name == "sepconv":
+            cases.append((name, f"[{n},{h},{w},{c}]->{o} final_act={fa}",
+                          lambda a=args, fa=fa: sepconv.fused_block(
+                              *a, final_act=fa),
+                          lambda a=args, fa=fa: sepconv.sepconv_plain(
+                              *a, final_act=fa)))
+        else:
+            cases.append((name, f"[{n},{h},{w},{c}]->{o}",
+                          lambda a=args: downblock.fused_down_block(*a),
+                          lambda a=args: downblock.downblock_plain(*a)))
+    cpu_gen = torch.Generator().manual_seed(SEED + n)
+    cases += [c for c in kernel_cases(n, dtype, cpu_gen)
+              if c[0] == "upblock"]
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -203,8 +268,14 @@ def model_input(n: int, res: int) -> torch.Tensor:
     return seeded_input(n, res, SEED + 1).cuda()
 
 
+def relative_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
 def phase_generator(tmp: str, results: dict) -> dict:
-    """Returns {res: (kernel forward, plain forward)} for phase 3."""
+    """Returns {(res, dtype): (kernel forward, plain forward)} for phase
+    3; both forwards take a float32 input and return float32."""
     from migan_tpu_torch.cli.demo import load_model
     from migan_tpu_torch.io import load_npz
     from migan_tpu_torch.models.migan_inference import generator_apply
@@ -212,46 +283,66 @@ def phase_generator(tmp: str, results: dict) -> dict:
         launch_counts, reset_launch_counts,
     )
 
-    forwards, runs = {}, []
-    for res in (512, 256):
+    forwards = {}
+    for res, dtype in ((512, "float32"), (256, "float32"),
+                       (512, "bfloat16")):
         path = os.path.join(tmp, f"migan{res}.npz")
-        make_weights(res, path)
-        fwd, r = load_model(f"migan-{res}", path, "float32", "cuda")
+        if not os.path.exists(path):
+            make_weights(res, path)
+        fwd, r = load_model(f"migan-{res}", path, dtype, "cuda")
         check(r == res, f"load_model resolution {r} != {res}")
-        plain_g = load_npz(path).cuda().eval()
-        forwards[res] = (fwd, lambda x, g=plain_g: generator_apply(g, x))
-        for n in ((1, 8) if res == 512 else (8,)):
-            runs.append((res, n, fwd, forwards[res][1]))
+        dt = DTYPES[dtype]
+        plain_g = load_npz(path).to("cuda", dt).eval()
+        forwards[res, dtype] = (fwd, lambda x, g=plain_g, dt=dt:
+                                generator_apply(g, x.to(dt)).float())
+    runs = [(512, 1, "float32"), (512, 8, "float32"), (256, 8, "float32"),
+            (512, 8, "bfloat16")]
 
     # The main path's run: counts from 0, kernel forwards only.
     outs = []
     reset_launch_counts()
-    for res, n, fwd, _ in runs:
+    for res, n, dtype in runs:
         before = launch_counts()
-        y = fwd(model_input(n, res))
+        y = forwards[res, dtype][0](model_input(n, res))
         torch.cuda.synchronize()
         after = launch_counts()
         per = {k: after[k] - before[k] for k in after}
         check(per == EXPECTED_LAUNCHES[res],
-              f"migan-{res} N={n}: launches {per}, expected "
+              f"migan-{res} N={n} {dtype}: launches {per}, expected "
               f"{EXPECTED_LAUNCHES[res]}")
         outs.append(y)
     totals = launch_counts()
     for k, v in totals.items():
         results[k]["launches"] = v
 
-    for (res, n, _, plain), y in zip(runs, outs):
-        want = plain(model_input(n, res)).float()
-        torch.cuda.synchronize()
+    for (res, n, dtype), y in zip(runs, outs):
+        x = model_input(n, res)
+        what = f"migan-{res} N={n} {dtype}"
         check(tuple(y.shape) == (n, res, res, 3), f"shape {tuple(y.shape)}")
-        check(bool(torch.isfinite(y).all()), f"migan-{res} N={n}: non-finite")
-        err = (y - want).abs()
-        ok = bool((err <= GEN_ATOL + GEN_RTOL * want.abs()).all())
-        print(f"phase2 migan-{res} N={n} float32: kernel chain vs plain "
-              f"max|diff| {err.max().item():.3e} (|plain| max "
-              f"{want.abs().max().item():.3f}; atol {GEN_ATOL}, rtol "
-              f"{GEN_RTOL}) launches {EXPECTED_LAUNCHES[res]}", flush=True)
-        check(ok, f"migan-{res} N={n}: kernel chain disagrees with plain")
+        check(bool(torch.isfinite(y).all()), f"{what}: non-finite")
+        want = forwards[res, "float32"][1](x)
+        if dtype == "float32":
+            err = (y - want).abs()
+            ok = bool((err <= GEN_ATOL + GEN_RTOL * want.abs()).all())
+            print(f"phase2 {what}: kernel chain vs plain max|diff| "
+                  f"{err.max().item():.3e} (|plain| max "
+                  f"{want.abs().max().item():.3f}; atol {GEN_ATOL}, rtol "
+                  f"{GEN_RTOL}) launches {EXPECTED_LAUNCHES[res]}",
+                  flush=True)
+            check(ok, f"{what}: kernel chain disagrees with plain")
+            continue
+        plain_bf16 = forwards[res, dtype][1](x)
+        torch.cuda.synchronize()
+        err, ref = relative_l2(y, want), relative_l2(plain_bf16, want)
+        print(f"phase2 {what}: relative L2 to the float32 plain output: "
+              f"kernel chain {err:.4e}, plain bfloat16 path {ref:.4e} "
+              f"(limit {BF16_FACTOR} x plain; max|diff| kernel "
+              f"{(y - want).abs().max().item():.3e}, plain "
+              f"{(plain_bf16 - want).abs().max().item():.3e}) launches "
+              f"{EXPECTED_LAUNCHES[res]}", flush=True)
+        check(err <= BF16_FACTOR * ref,
+              f"{what}: kernel chain {err:.4e} from float32, beyond "
+              f"{BF16_FACTOR} x the plain path's {ref:.4e}")
     print(f"phase2 main-path launches {totals}", flush=True)
     return forwards
 
@@ -261,9 +352,11 @@ def phase_generator(tmp: str, results: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_times(forwards: dict, gpu: str) -> None:
-    for res, n in ((512, 1), (512, 8), (256, 8)):
+    for res, n, dtype in ((512, 1, "float32"), (512, 8, "float32"),
+                          (256, 8, "float32"), (512, 1, "bfloat16"),
+                          (512, 8, "bfloat16")):
         x = model_input(n, res)
-        fwd, plain = forwards[res]
+        fwd, plain = forwards[res, dtype]
         times = {"kernel": [], "plain": []}
         for _ in range(3):
             fwd(x), plain(x)
@@ -277,7 +370,7 @@ def phase_times(forwards: dict, gpu: str) -> None:
                 times[label].append(time.perf_counter() - t0)
         for label in ("kernel", "plain"):
             med = statistics.median(times[label])
-            print(f"phase3 migan-{res} N={n} float32 {label} path: "
+            print(f"phase3 migan-{res} N={n} {dtype} {label} path: "
                   f"{med * 1e3:.3f} ms/forward, {n / med:.2f} img/s "
                   f"(median of 20; {gpu})", flush=True)
 
@@ -297,7 +390,8 @@ def main() -> int:
     print(f"kernel build: {_build.timed_build():.1f} s", flush=True)
 
     results = {k: {"name": k, "route": "cuda", "source": src,
-                   "replaces": rep, "launches": 0, "max_abs_err": 0.0}
+                   "replaces": rep, "launches": 0, "max_abs_err": 0.0,
+                   "shapes": []}
                for k, (src, rep) in SOURCES.items()}
     phase_kernels(results)
     with tempfile.TemporaryDirectory() as tmp:

@@ -22,7 +22,7 @@ the Pallas kernels in JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -30,9 +30,9 @@ from ..ops import upsample2d
 from ..ops.kernels import fused_block, fused_down_block, fused_up_block
 from ..ops.kernels.sepconv import sepconv_plain
 from .migan_inference import (
-    ACT, Conv, Generator, SeparableConv, conv1x1_apply, encoder_block_apply,
-    generator_apply, resample_filter, synthesis_block_apply,
-    synthesis_first_apply, _noise_for,
+    ACT, Conv, Generator, GeneratorConfig, SeparableConv, conv1x1_apply,
+    encoder_block_apply, generator_apply, resample_filter,
+    synthesis_block_apply, synthesis_first_apply, _noise_for,
 )
 
 
@@ -51,6 +51,30 @@ class SepWeights:
                    p.conv2.weight[:, :, 0, 0].t().contiguous())
 
 
+def kernel_levels(cfg: GeneratorConfig) -> List[int]:
+    """Resolutions of the levels that run as kernels, top first."""
+    top = cfg.encode_res[0]
+    return [top >> i for i in range(max(0, min(5, cfg.log2res - 4)))]
+
+
+def kernel_shapes(cfg: GeneratorConfig) -> List[Tuple]:
+    """(kernel, H, W, C, O, final_act) of every launch of one
+    `KernelGenerator` forward, in call order: H, W, C the input's size
+    (x_lo's for upblock), O the output channels; final_act only for
+    sepconv."""
+    levels = kernel_levels(cfg)
+    shapes = []
+    for r in levels:
+        shapes.append(("sepconv", r, r, cfg.ch(r), cfg.ch(r), True))
+        shapes.append(("downblock", r, r, cfg.ch(r), cfg.ch(r // 2), None))
+    for r in reversed(levels):
+        h = r // 2
+        if r != levels[-1]:
+            shapes.append(("sepconv", h, h, cfg.ch(h), cfg.ch(r), False))
+        shapes.append(("upblock", h, h, cfg.ch(r), cfg.ch(r), None))
+    return shapes
+
+
 def _torgb(p: Conv):
     return p.weight[:, :, 0, 0].t().contiguous(), p.bias.contiguous()
 
@@ -66,9 +90,8 @@ class KernelGenerator:
     def __init__(self, generator: Generator):
         cfg = generator.cfg
         self.generator = generator
-        self.n_kernel_levels = max(0, min(5, cfg.log2res - 4))
-        top = cfg.encode_res[0]
-        self.kernel_res = [top >> i for i in range(self.n_kernel_levels)]
+        self.kernel_res = kernel_levels(cfg)
+        self.n_kernel_levels = len(self.kernel_res)
         enc, syn = generator.encoder, generator.synthesis
         with torch.no_grad():
             self.enc = {r: (SepWeights.of(enc[f"b{r}"].conv1),

@@ -31,9 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (each returns the launch's CUDA error).
 SIGNATURES = {
-    "migan_sepconv": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P],
-    "migan_downblock": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "migan_sepconv": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _P],
+    "migan_downblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P],
     "migan_upblock": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _I, _I, _I, _I, _P],
 }
@@ -116,7 +117,7 @@ class LaunchCounter:
 def check_cuda_args(name: str, dtype: torch.dtype, device: torch.device,
                     **tensors) -> None:
     """Raise unless every tensor lies on `device`, has `dtype` and is
-    contiguous. A channel count too large for a block's shared memory is
+    contiguous. A channel count too large for upblock's shared memory is
     rejected by the launch itself (see `raise_on_error`)."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} not supported "

@@ -2,8 +2,10 @@
 ``act(pw1x1(down2_[1,3,3,1](act(dw3x3(x) + b_dw))))``.
 
 Port of `migan_tpu/ops/pallas/downblock.py::fused_down_block` as one CUDA
-kernel (`csrc/downblock.cu`) on contiguous NHWC tensors. On a CPU tensor
-the wrapper runs `downblock_plain`, the same function in plain PyTorch.
+kernel (`csrc/downblock.cu`: y once per hi-res pixel, separable FIR,
+pointwise product on tensor cores) on contiguous NHWC tensors. Its launch
+geometry comes from `plan.launch_plan`. On a CPU tensor the wrapper runs
+`downblock_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import downsample2d
-from . import _build
+from . import _build, plan
 from .sepconv import ACT
 
 COUNTER = _build.LaunchCounter("downblock")
@@ -34,7 +36,8 @@ def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
     """Fused dw3x3 + b -> act -> FIR-down2 -> pw1x1 -> act.
 
     x: [N, Hh, Wh, C] contiguous, Hh and Wh even; w_dw: [3, 3, C];
-    b_dw: [C]; w_pw: [C, O]; all of one dtype. Returns [N, Hh/2, Wh/2, O].
+    b_dw: [C]; w_pw: [C, O]; all of one dtype; C and O multiples of 8 on CUDA.
+    Returns [N, Hh/2, Wh/2, O].
     """
     if x.device.type == "cpu":
         return downblock_plain(x, w_dw, b_dw, w_pw)
@@ -50,11 +53,14 @@ def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
             f"{tuple(w_pw.shape)} (H and W must be even)")
     _build.check_cuda_args("fused_down_block", x.dtype, x.device, x=x,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw)
+    plan.check_tc_args("fused_down_block", x, w_pw)
+    p = plan.launch_plan("downblock", n, hh, wh, o, x.dtype)
     lib = _build.load_library()
     out = torch.empty((n, hh // 2, wh // 2, o), dtype=x.dtype,
                       device=x.device)
     err = lib.migan_downblock(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), w_dw.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], p.config, p.blocks, p.threads,
+        p.smem_bytes, x.data_ptr(), w_dw.data_ptr(),
         b_dw.data_ptr(), w_pw.data_ptr(), out.data_ptr(), n, hh, wh, c, o,
         _build.stream_handle(x.device))
     _build.raise_on_error("fused_down_block", err)

@@ -2,10 +2,11 @@
 
 Port of `migan_tpu/ops/pallas/sepconv.py::fused_block` and
 `migan_tpu/ops/pallas/packedblock.py::fused_block_packed`: one CUDA kernel
-(`csrc/sepconv.cu`) on contiguous NHWC tensors, with `final_act=False` for
-a synthesis conv1's low-res half, whose activation follows the up-sample.
-On a CPU tensor the wrapper runs `sepconv_plain`, the same function in
-plain PyTorch.
+(`csrc/sepconv.cu`, pointwise product on tensor cores) on contiguous NHWC
+tensors, with `final_act=False` for a synthesis conv1's low-res half, whose
+activation follows the up-sample. Its launch geometry comes from
+`plan.launch_plan`. On a CPU tensor the wrapper runs `sepconv_plain`, the
+same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from ..bias_act import lrelu_agc
 from ..conv import conv2d
-from . import _build
+from . import _build, plan
 
 ACT = lrelu_agc(alpha=0.2, gain="sqrt_2", clamp=256)
 COUNTER = _build.LaunchCounter("sepconv")
@@ -41,8 +42,8 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
 
     x: [N, H, W, C] contiguous; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
     noise: optional [H, W] per-pixel scalar (already scaled by its
-    strength), broadcast over batch and channels. All of one dtype.
-    Returns [N, H, W, O].
+    strength), broadcast over batch and channels. All of one dtype; C and
+    O multiples of 8 on CUDA. Returns [N, H, W, O].
     """
     if x.device.type == "cpu":
         return sepconv_plain(x, w_dw, b_dw, w_pw, noise, final_act)
@@ -60,10 +61,13 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
             f"{None if noise is None else tuple(noise.shape)}")
     _build.check_cuda_args("fused_block", x.dtype, x.device, x=x,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise=noise)
+    plan.check_tc_args("fused_block", x, w_pw)
+    p = plan.launch_plan("sepconv", n, h, w, o, x.dtype)
     lib = _build.load_library()
     out = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
     err = lib.migan_sepconv(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), w_dw.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], p.config, p.blocks, p.threads,
+        p.smem_bytes, x.data_ptr(), w_dw.data_ptr(),
         b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise), out.data_ptr(),
         n, h, w, c, o, int(final_act), _build.stream_handle(x.device))
     _build.raise_on_error("fused_block", err)
