@@ -7,17 +7,23 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
 
   1. runs each kernel against its plain PyTorch version on the card at
      migan-512's shapes (batch 2; the top level, C = 64, and a C = 512
-     level), in float32 with TF32 off and in bfloat16; then times sepconv
-     and downblock against their plain versions at every shape a migan-512
-     forward launches them at, and upblock at its two cases, at N = 1 and
-     N = 8 in both dtypes, holding each result against the plain one;
+     level), in float32 with TF32 off and in bfloat16; then times every
+     kernel against its plain version at every shape a migan-512 forward
+     launches it at, at N = 1 and N = 8 in both dtypes, holding each
+     result against the plain one, and prints each shape's bound: the
+     larger of its bytes (inputs read once, outputs written once) over
+     3.35 TB/s and its pointwise product over the tensor cores' peak;
   2. writes seeded random migan-512 / migan-256 weights (non-zero noise
      strengths) with `save_npz`, loads them through the demo's
      `load_model`, runs the kernel chain at N = 1 and N = 8 (migan-256 at
      N = 8) in float32 and migan-512 at N = 8 in bfloat16, holds each
      against the plain generator on the same card, and checks that every
      forward launched 19 (migan-512) or 15 (migan-256) kernels;
-  3. times the kernel path and the plain path (median of 20 forwards
+  3. runs the demo CLI (`migan_tpu_torch.cli.demo`, `--device cuda`) on
+     seeded PNG image/mask pairs, per image and batched, and checks that
+     every composite was written at the right size, that the two runs
+     agree, and that the kernels were launched 19 times per forward;
+  4. times the kernel path and the plain path (median of 20 forwards
      after warm-up, in turns), float32 and, for migan-512, bfloat16.
 
 Where the device time of a forward goes is measured apart from this, by
@@ -73,6 +79,11 @@ SOURCES = {
                 "migan_tpu/ops/pallas/upblock.py:303"),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The card's peaks for a shape's bound (NVIDIA's H100 SXM data sheet):
+# device memory, and the pointwise product on the tensor cores, bf16, or
+# float32 as the kernels run it: three TF32 products at the TF32 peak.
+HBM_BYTES_PER_S = 3.35e12
+PRODUCT_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -98,6 +109,17 @@ def tolerance(dtype, what: str):
     """(atol, rtol) of a kernel-vs-plain check."""
     atol, rtol = TOL[dtype]
     return (CLAMP_ATOL if "clamp" in what else atol), rtol
+
+
+def bound(inputs, outputs, product_flops: int, dtype):
+    """(bound_ms, bound_by): the least time of one call, the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its pointwise product over the tensor cores' peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = product_flops / PRODUCT_FLOPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def max_err(a, b, dtype, what: str) -> float:
@@ -188,38 +210,44 @@ def phase_kernels(results: dict) -> None:
     # times at every main-path shape, N = 1 and 8, both dtypes
     for dtype in (torch.float32, torch.bfloat16):
         for n in (1, 8):
-            for name, label, fk, fp in timed_cases(n, dtype):
+            for name, label, fk, fp, args, flops in timed_cases(n, dtype):
                 ms, plain_ms = cuda_ms(fk), cuda_ms(fp)
                 got, want = fk(), fp()
                 torch.cuda.synchronize()
-                pairs = zip(got, want) if isinstance(got, tuple) else [
-                    (got, want)]
+                outs = got if isinstance(got, tuple) else (got,)
+                wants = want if isinstance(want, tuple) else (want,)
                 err = max(max_err(a, b, dtype, f"{name} {label}")
-                          for a, b in pairs)
+                          for a, b in zip(outs, wants))
+                bound_ms, bound_by = bound(args, outs, flops, dtype)
                 dt = str(dtype)[6:]
                 print(f"phase1 time {name} {label} {dt}: kernel {ms:.4f} "
-                      f"ms, plain {plain_ms:.4f} ms, plain/kernel "
-                      f"{plain_ms / ms:.2f}x, max|diff| {err:.3e}",
-                      flush=True)
-                results[name]["shapes"].append(
-                    {"shape": label, "dtype": dt, "ms": ms,
-                     "plain_ms": plain_ms, "max_abs_err": err})
+                      f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+                      f"ms ({bound_by}), plain/kernel {plain_ms / ms:.2f}x, "
+                      f"bound/kernel {bound_ms / ms:.3f}, max|diff| "
+                      f"{err:.3e}", flush=True)
+                row = {"shape": label, "dtype": dt, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err}
+                results[name]["shapes"].append(row)
                 if dtype == torch.float32:
                     results[name]["max_abs_err"] = max(
                         results[name]["max_abs_err"], err)
-                if "ms" not in results[name] and n == 8:
-                    # the top level, float32, N = 8: listed first
-                    results[name]["ms"] = ms
-                    results[name]["plain_ms"] = plain_ms
+                    # the kernel's headline: float32, N = 8, the shape
+                    # with the most work (largest bound), its top level
+                    if n == 8 and row["bound_ms"] > results[name].get(
+                            "bound_ms", 0.0):
+                        for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
+                            results[name][k] = row[k]
 
 
 def timed_cases(n: int, dtype):
-    """(kernel, label, kernel call, plain call): sepconv and downblock at
-    every shape of a migan-512 forward (top level first), upblock at the
-    two cases of `kernel_cases`. Inputs are made on the card."""
+    """(kernel, label, kernel call, plain call, input tensors, flops of the
+    pointwise product) at every shape of a migan-512 forward, in call
+    order; upblock as the forward calls it (rgb only at the top level).
+    Inputs are made on the card."""
     from migan_tpu_torch.models.migan_inference import GeneratorConfig
     from migan_tpu_torch.models.migan_kernels import kernel_shapes
-    from migan_tpu_torch.ops.kernels import downblock, sepconv
+    from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
 
     gen = torch.Generator("cuda").manual_seed(SEED + n)
 
@@ -227,27 +255,42 @@ def timed_cases(n: int, dtype):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * scale).to(dtype)
 
+    cfg = GeneratorConfig(resolution=512)
+    top = cfg.encode_res[0]
     seen, cases = set(), []
-    for shape in kernel_shapes(GeneratorConfig(resolution=512)):
+    for shape in kernel_shapes(cfg):
         name, h, w, c, o, fa = shape
-        if name == "upblock" or shape in seen:
+        if shape in seen:
             continue
         seen.add(shape)
-        args = (r(n, h, w, c), r(3, 3, c, scale=1 / 3), r(c, scale=1 / 3),
-                r(c, o, scale=c ** -.5))
+        sep = (r(3, 3, c, scale=1 / 3), r(c, scale=1 / 3),
+               r(c, o, scale=c ** -.5))
         if name == "sepconv":
+            args = (r(n, h, w, c), *sep)
             cases.append((name, f"[{n},{h},{w},{c}]->{o} final_act={fa}",
                           lambda a=args, fa=fa: sepconv.fused_block(
                               *a, final_act=fa),
                           lambda a=args, fa=fa: sepconv.sepconv_plain(
-                              *a, final_act=fa)))
-        else:
+                              *a, final_act=fa), args, 2 * n * h * w * c * o))
+        elif name == "downblock":
+            args = (r(n, h, w, c), *sep)
             cases.append((name, f"[{n},{h},{w},{c}]->{o}",
                           lambda a=args: downblock.fused_down_block(*a),
-                          lambda a=args: downblock.downblock_plain(*a)))
-    cpu_gen = torch.Generator().manual_seed(SEED + n)
-    cases += [c for c in kernel_cases(n, dtype, cpu_gen)
-              if c[0] == "upblock"]
+                          lambda a=args: downblock.downblock_plain(*a),
+                          args, 2 * n * (h // 2) * (w // 2) * c * o))
+        else:
+            emit = 2 * h != top
+            args = (r(n, h, w, c), r(n, 2 * h, 2 * w, c),
+                    r(2 * h, 2 * w, scale=.3), *sep,
+                    r(2 * h, 2 * w, scale=.3), r(o, 3, scale=o ** -.5),
+                    r(3, scale=.1))
+            cases.append((name, f"x_lo [{n},{h},{w},{c}]->{o} "
+                          f"{'feat+rgb' if emit else 'rgb only'}",
+                          lambda a=args, e=emit: upblock.fused_up_block(
+                              *a, emit_features=e),
+                          lambda a=args, e=emit: upblock.upblock_plain(
+                              *a, emit_features=e),
+                          args, 2 * n * 4 * h * w * c * o))
     return cases
 
 
@@ -348,7 +391,68 @@ def phase_generator(tmp: str, results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: forward times
+# Phase 3: the demo CLI on the card
+# ---------------------------------------------------------------------------
+
+DEMO_SIZES = ((512, 512), (640, 480), (300, 700))   # (w, h) of the images
+
+
+def phase_demo(tmp: str) -> None:
+    """The demo's `main`, as `python -m migan_tpu_torch.cli.demo ...
+    --device cuda` runs it, on seeded PNGs with the migan-512 weights of
+    phase 2: per image (--batch-size 1) and batched (3, one forward)."""
+    import numpy as np
+    from PIL import Image
+
+    from migan_tpu_torch.cli import demo
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    images, masks = os.path.join(tmp, "images"), os.path.join(tmp, "masks")
+    os.makedirs(images)
+    os.makedirs(masks)
+    rng = np.random.RandomState(SEED)
+    for i, (w, h) in enumerate(DEMO_SIZES):
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+            os.path.join(images, f"{i}.png"))
+        m = np.full((h, w), 255, np.uint8)
+        m[h // 4:h // 2, w // 5:w // 2] = 0
+        Image.fromarray(m).save(os.path.join(masks, f"{i}.png"))
+    outs = {}
+    for bs, forwards in (("1", len(DEMO_SIZES)), ("3", 1)):
+        out = os.path.join(tmp, f"demo_bs{bs}")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        demo.main(["--model-name", "migan-512", "--model-path",
+                   os.path.join(tmp, "migan512.npz"), "--images-dir", images,
+                   "--masks-dir", masks, "--output-dir", out, "--device",
+                   "cuda", "--batch-size", bs, "--io-workers", "2"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {k: v * forwards for k, v in EXPECTED_LAUNCHES[512].items()}
+        check(counts == want, f"demo --batch-size {bs}: launches {counts}, "
+              f"expected {want}")
+        for i, (w, h) in enumerate(DEMO_SIZES):
+            path = os.path.join(out, f"{i}.png")
+            check(os.path.exists(path), f"demo wrote no {path}")
+            got = np.asarray(Image.open(path).convert("RGB"))
+            scale = min(1.0, 512 / max(w, h))
+            size = (int(h * scale), int(w * scale))
+            check(got.shape == (*size, 3), f"demo {path}: shape {got.shape}")
+            outs.setdefault(i, []).append(got.astype(np.int32))
+        print(f"phase3 demo --batch-size {bs}: {len(DEMO_SIZES)} images "
+              f"written in {dt:.2f} s, launches {counts}", flush=True)
+    for i, (a, b) in outs.items():
+        d = int(np.abs(a - b).max())
+        check(d <= 1, f"demo image {i}: batched differs by {d} uint8")
+    print("phase3 demo: per-image and batched composites within 1 uint8",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: forward times
 # ---------------------------------------------------------------------------
 
 def phase_times(forwards: dict, gpu: str) -> None:
@@ -370,7 +474,7 @@ def phase_times(forwards: dict, gpu: str) -> None:
                 times[label].append(time.perf_counter() - t0)
         for label in ("kernel", "plain"):
             med = statistics.median(times[label])
-            print(f"phase3 migan-{res} N={n} {dtype} {label} path: "
+            print(f"phase4 migan-{res} N={n} {dtype} {label} path: "
                   f"{med * 1e3:.3f} ms/forward, {n / med:.2f} img/s "
                   f"(median of 20; {gpu})", flush=True)
 
@@ -389,13 +493,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     print(f"kernel build: {_build.timed_build():.1f} s", flush=True)
 
+    # library_ms: no single PyTorch call computes any of the fused blocks
     results = {k: {"name": k, "route": "cuda", "source": src,
                    "replaces": rep, "launches": 0, "max_abs_err": 0.0,
-                   "shapes": []}
+                   "library_ms": None, "shapes": []}
                for k, (src, rep) in SOURCES.items()}
     phase_kernels(results)
     with tempfile.TemporaryDirectory() as tmp:
         forwards = phase_generator(tmp, results)
+        phase_demo(tmp)
         phase_times(forwards, gpu)
 
     print(gpu)

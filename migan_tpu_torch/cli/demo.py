@@ -8,8 +8,8 @@ reference scripts/demo.py).
 Takes the JAX package's `.npz` weights or a reference `.pt` state_dict.
 The generator runs through the kernel chain (`models/migan_kernels.py`);
 on `--device cpu` the chain's fused ops take their plain versions.
-Pre/post-processing is `migan_tpu/data/preprocess.py` (numpy and PIL
-only), imported where files are read.
+Pre/post-processing is the port's `data/preprocess.py` (numpy and PIL),
+imported where files are read.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def _load_input(img_path, masks_dir, resolution, invert_mask):
     input [1, res, res, 4]."""
     from PIL import Image
 
-    from migan_tpu.data.preprocess import preprocess, read_mask, resize_max
+    from ..data.preprocess import preprocess, read_mask, resize_max
 
     stem = "".join(os.path.basename(img_path).split(".")[:-1])
     img = resize_max(Image.open(img_path).convert("RGB"),
@@ -105,7 +105,7 @@ def _load_input(img_path, masks_dir, resolution, invert_mask):
 
 
 def _save(result, img_path, img_resized, mask_resized, output_dir):
-    from migan_tpu.data.preprocess import postprocess
+    from ..data.preprocess import postprocess
 
     composed = postprocess(result, img_resized, mask_resized)
     composed.save(Path(output_dir) / f"{Path(img_path).stem}.png")

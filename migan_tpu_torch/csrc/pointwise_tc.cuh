@@ -1,4 +1,5 @@
-// The tensor-core pointwise product shared by sepconv.cu and downblock.cu.
+// The tensor-core pointwise product shared by sepconv.cu, downblock.cu and
+// upblock.cu.
 //
 // A thread block owns TP output pixels and TO output channels. It streams
 // the input channels through shared memory in K chunks of KC = 32:
@@ -51,7 +52,8 @@ namespace tc {
 constexpr int KC = 32;  // input channels per K chunk
 
 // TP pixels x TO channels per block; WM x WN warps, each (TP/WM) x (TO/WN);
-// TH: downblock's tile rows (its tile is TH x TP/TH lo-res pixels).
+// TH: downblock's and upblock's tile rows (their tile is TH x TP/TH
+// pixels, lo-res for downblock, hi-res for upblock).
 template <int TP_, int TO_, int WM_, int WN_, int TH_>
 struct Cfg {
   static constexpr int TP = TP_, TO = TO_, WM = WM_, WN = WN_, TH = TH_;
@@ -73,6 +75,12 @@ using SepCfg2 = Cfg<16, 32, 1, 4, 4>;
 using DownCfg0 = Cfg<64, 128, 4, 4, 8>;
 using DownCfg1 = Cfg<64, 64, 4, 4, 8>;
 using DownCfg2 = SepCfg2;
+// upblock: sepconv's large tiles (8 x 8 hi-res pixels, two blocks per SM);
+// the small one 4 x 4 pixels and 64 channels, which gives a full wave at
+// the lowest level at batch 1 with half the recomputed phase 1 of TO = 32.
+using UpCfg0 = SepCfg0;
+using UpCfg1 = SepCfg1;
+using UpCfg2 = Cfg<16, 64, 1, 4, 4>;
 
 // The two-stage ring at the start of dynamic shared memory: B0 B1 A0 A1.
 template <typename T, typename G>

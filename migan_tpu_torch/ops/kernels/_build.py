@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of `migan_tpu_torch/csrc/`.
 
 The `.cu` files have plain C entry points. At first use they are compiled
-with nvcc for sm_90a into one shared library under `build/kernels/` at the
-repository root (listed in `.gitignore`), named by a hash of the sources
-and flags, and loaded with ctypes. Nothing here runs at import time, and
+with nvcc for sm_90a, one nvcc process per file, all started together, and
+linked into one shared library under `build/kernels/` at the repository
+root (listed in `.gitignore`), named by a hash of the sources and flags,
+and loaded with ctypes. Nothing here runs at import time, and
 nothing is built for CPU tensors.
 """
 
@@ -24,8 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]           # migan_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +36,8 @@ SIGNATURES = {
                       _I, _I, _I, _I, _P],
     "migan_downblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
-    "migan_upblock": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _I, _I, _P],
+    "migan_upblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,20 +72,30 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *map(str, cu)]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{p.stem}.o") for p in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                 obj] for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        # wait for every compile before reporting any failure
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(cmds, procs, logs):
+            _check(cmd, p.returncode, log)
+        so = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *ARCH, "-shared", *objs, "-o", so]
         r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        _check(cmd, r.returncode, r.stdout + r.stderr)
+        os.replace(so, out)
     return out
+
+
+def _check(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}"
+                           f"\n{log}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,8 +128,7 @@ class LaunchCounter:
 def check_cuda_args(name: str, dtype: torch.dtype, device: torch.device,
                     **tensors) -> None:
     """Raise unless every tensor lies on `device`, has `dtype` and is
-    contiguous. A channel count too large for upblock's shared memory is
-    rejected by the launch itself (see `raise_on_error`)."""
+    contiguous."""
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} not supported "
                         f"(float32 or bfloat16)")

@@ -4,8 +4,11 @@
 optional torgb epilogue ``rgb = y . w_rgb + b_rgb``.
 
 Port of `migan_tpu/ops/pallas/upblock.py::fused_up_block` as one CUDA
-kernel (`csrc/upblock.cu`) on contiguous NHWC tensors. On a CPU tensor the
-wrapper runs `upblock_plain`, the same function in plain PyTorch.
+kernel (`csrc/upblock.cu`: t once per hi-res pixel of a tile, pointwise
+product on tensor cores, torgb summed in a fixed order) on contiguous NHWC
+tensors. Its launch geometry comes from `plan.launch_plan`. On a CPU
+tensor the wrapper runs `upblock_plain`, the same function in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import upsample2d
-from . import _build
+from . import _build, plan
 from .downblock import FIR_TAPS
 from .sepconv import ACT
 
@@ -58,7 +61,7 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
     x_lo: [N, Hl, Wl, C]; skip: [N, 2Hl, 2Wl, C]; noise_up, noise2:
     [2Hl, 2Wl] pre-scaled noise; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
     w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue. All contiguous and
-    of one dtype.
+    of one dtype; C and O multiples of 8 on CUDA.
 
     Returns the features [N, 2Hl, 2Wl, O]; with w_rgb the tuple
     (features, rgb [N, 2Hl, 2Wl, 3]), or only rgb when emit_features is
@@ -91,17 +94,27 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
                            x_lo=x_lo, skip=skip, noise_up=noise_up,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise2=noise2,
                            w_rgb=w_rgb, b_rgb=b_rgb)
+    plan.check_tc_args("fused_up_block", x_lo, w_pw)
+    plan.check_tc_args("fused_up_block", skip, w_pw)
+    p = plan.launch_plan("upblock", n, hl, wl, o, x_lo.dtype)
     lib = _build.load_library()
-    feat = (torch.empty((n, *hw, o), dtype=x_lo.dtype, device=x_lo.device)
+    dev = x_lo.device
+    feat = (torch.empty((n, *hw, o), dtype=x_lo.dtype, device=dev)
             if emit_features else None)
-    rgb = (torch.empty((n, *hw, 3), dtype=x_lo.dtype, device=x_lo.device)
-           if w_rgb is not None else None)
+    rgb = part = None
+    if w_rgb is not None:
+        rgb = torch.empty((n, *hw, 3), dtype=x_lo.dtype, device=dev)
+        if p.out_tiles > 1:
+            # each output tile's rgb partial sums, added in tile order
+            part = torch.empty((p.out_tiles, n, *hw, 3),
+                               dtype=torch.float32, device=dev)
     err = lib.migan_upblock(
-        _build.DTYPE_CODES[x_lo.dtype], x_lo.data_ptr(), skip.data_ptr(),
-        noise_up.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(),
-        w_pw.data_ptr(), _build.ptr(noise2), _build.ptr(w_rgb),
-        _build.ptr(b_rgb), _build.ptr(feat), _build.ptr(rgb), n, hl, wl, c, o,
-        _build.stream_handle(x_lo.device))
+        _build.DTYPE_CODES[x_lo.dtype], p.config, p.blocks, p.threads,
+        p.smem_bytes, x_lo.data_ptr(), skip.data_ptr(), noise_up.data_ptr(),
+        w_dw.data_ptr(), b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise2),
+        _build.ptr(w_rgb), _build.ptr(b_rgb), _build.ptr(feat),
+        _build.ptr(rgb), _build.ptr(part), n, hl, wl, c, o,
+        _build.stream_handle(dev))
     _build.raise_on_error("fused_up_block", err)
     COUNTER.count += 1
     return _outputs(feat, rgb, emit_features)

@@ -1,6 +1,6 @@
 """Each CUDA kernel of `migan_tpu_torch` against its plain PyTorch version on
 the card: float32 with TF32 off at odd sizes that leave ragged tiles, and
-sepconv and downblock at every main-path shape of migan-512 in float32 and
+every kernel at every main-path shape of migan-512 in float32 and
 bfloat16.
 
 Marked `cuda`: skips where no CUDA device is present. This file imports
@@ -22,14 +22,14 @@ import torch
 from migan_tpu_torch.models.migan_inference import GeneratorConfig
 from migan_tpu_torch.models.migan_kernels import kernel_shapes
 from migan_tpu_torch.ops.kernels import (
-    downblock, fused_block, fused_down_block, fused_up_block, sepconv,
+    downblock, fused_block, fused_down_block, fused_up_block, plan, sepconv,
     upblock,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
-# sepconv and downblock launches of one migan-512 forward, deduplicated
-MAIN_SHAPES = sorted({s for s in kernel_shapes(GeneratorConfig(resolution=512))
-                      if s[0] != "upblock"}, key=str)
+# the kernel launches of one migan-512 forward, deduplicated
+MAIN_SHAPES = sorted(set(kernel_shapes(GeneratorConfig(resolution=512))),
+                     key=str)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,18 +63,35 @@ def _close(got, want, dtype):
                                atol=atol)
 
 
+def _up(rng, n, hl, wl, c, o):
+    """upblock's inputs: x_lo, skip, noise_up, dw/pw weights, noise2,
+    w_rgb, b_rgb. w_rgb is scaled by O^-1/2, as the model's torgb weights
+    are, so that rgb keeps the same size at every O."""
+    hh, wh = 2 * hl, 2 * wl
+    return (_r(rng, n, hl, wl, c), _r(rng, n, hh, wh, c),
+            _r(rng, hh, wh, scale=0.1), *_sep(rng, c, o),
+            _r(rng, hh, wh, scale=0.1), _r(rng, o, 3, scale=o ** -0.5),
+            _r(rng, 3, scale=0.1))
+
+
 def _held(dev, kernel, args, dtype, **kw):
-    """Launch `kernel` ("sepconv" or "downblock") once, check that it
-    counted one launch, and hold it against its plain version."""
+    """Launch `kernel` once, check that it counted one launch, and hold
+    each of its outputs against its plain version."""
     mod, fused, plain = {
         "sepconv": (sepconv, fused_block, sepconv.sepconv_plain),
         "downblock": (downblock, fused_down_block,
-                      downblock.downblock_plain)}[kernel]
+                      downblock.downblock_plain),
+        "upblock": (upblock, fused_up_block, upblock.upblock_plain)}[kernel]
     before = mod.COUNTER.count
     got = fused(*args, **kw)
     torch.cuda.synchronize()
     assert mod.COUNTER.count == before + 1
-    _close(got, plain(*args, **kw), dtype)
+    want = plain(*args, **kw)
+    if isinstance(got, tuple):
+        for g, w in zip(got, want):
+            _close(g, w, dtype)
+    else:
+        _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("final_act", [True, False])
@@ -139,34 +156,34 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fused_down_block(x[:, :7].contiguous(), *w)
 
 
-def test_channels_beyond_shared_memory_raise_at_launch(dev):
-    """upblock keeps all C channels of its tile in shared memory: C = 1024
-    needs ~264 KB per block, more than Hopper has. The launch reports it
-    and the wrapper raises, counting nothing; the next launch of a size
-    that fits still succeeds."""
-    rng = np.random.RandomState(10)
-    n, hl, c, o = 1, 2, 1024, 32
-    big = _on(dev, _r(rng, n, hl, hl, c), _r(rng, n, 2 * hl, 2 * hl, c),
-              _r(rng, 2 * hl, 2 * hl, scale=0.1), *_sep(rng, c, o))
-    before = upblock.COUNTER.count
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        fused_up_block(*big)
-    assert upblock.COUNTER.count == before
-    c = 32
-    args = _on(dev, _r(rng, n, hl, hl, c), _r(rng, n, 2 * hl, 2 * hl, c),
-               _r(rng, 2 * hl, 2 * hl, scale=0.1), *_sep(rng, c, o))
-    torch.testing.assert_close(fused_up_block(*args),
-                               upblock.upblock_plain(*args),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("kernel", ["sepconv", "downblock"])
+@pytest.mark.parametrize("kernel", ["sepconv", "downblock", "upblock"])
 def test_channels_stream_in_chunks_at_1024(dev, kernel):
-    """sepconv and downblock stream C through shared memory in chunks, so
-    C = 1024 runs and matches the plain version."""
+    """Every kernel streams C through shared memory in chunks, so C = 1024
+    runs and matches the plain version."""
     rng = np.random.RandomState(11)
-    args = _on(dev, _r(rng, 1, 8, 12, 1024), *_sep(rng, 1024, 64))
+    if kernel == "upblock":
+        args = _on(dev, *_up(rng, 1, 4, 6, 1024, 64))
+    else:
+        args = _on(dev, _r(rng, 1, 8, 12, 1024), *_sep(rng, 1024, 64))
     _held(dev, kernel, args, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,hl,wl,c,o", [
+    (1, 16, 16, 512, 512),   # several output tiles: partial sums + sum pass
+    (2, 20, 12, 64, 64),     # one output tile: rgb written by the block
+])
+def test_upblock_rgb_is_the_same_from_run_to_run(dev, n, hl, wl, c, o,
+                                                 dtype):
+    """torgb sums in a fixed order, with no float atomics: two launches
+    give bit-identical rgb (and features)."""
+    rng = np.random.RandomState(13)
+    args = _on(dev, *_up(rng, n, hl, wl, c, o), dtype=dtype)
+    f1, rgb1 = fused_up_block(*args)
+    f2, rgb2 = fused_up_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(rgb1, rgb2) and torch.equal(f1, f2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -174,10 +191,14 @@ def test_channels_stream_in_chunks_at_1024(dev, kernel):
 @pytest.mark.parametrize("shape", MAIN_SHAPES,
                          ids=lambda s: "{}-{}x{}-{}to{}-{}".format(*s))
 def test_main_path_shapes_match_plain(dev, shape, dtype):
-    """Every sepconv and downblock shape of a migan-512 forward, N = 1."""
+    """Every kernel shape of a migan-512 forward, N = 1 (upblock with
+    both outputs)."""
     kernel, h, w, c, o, final_act = shape
     rng = np.random.RandomState(h + c + o)
-    args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
+    if kernel == "upblock":
+        args = _on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype)
+    else:
+        args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
     kw = {} if final_act is None else {"final_act": final_act}
     _held(dev, kernel, args, dtype, **kw)
 
@@ -191,13 +212,35 @@ def test_main_path_shapes_match_plain(dev, shape, dtype):
 ])
 def test_ragged_tiles_match_plain(dev, n, h, w, c, o, dtype):
     """Odd H and W (ragged pixel tiles), C and O that are not multiples of
-    the tiles, for both kernels, with noise for sepconv."""
+    the tiles, for every kernel, with noise for sepconv; upblock with x_lo
+    [n, h, w, c], so its hi-res 2h x 2w is no multiple of its tiles."""
     rng = np.random.RandomState(c + o)
     x, *wts = _on(dev, _r(rng, n, h, w, c), *_sep(rng, c, o), dtype=dtype)
     noise = _on(dev, _r(rng, h, w, scale=0.1), dtype=dtype)[0]
     for fa in (True, False):
         _held(dev, "sepconv", (x, *wts, noise), dtype, final_act=fa)
     _held(dev, "downblock", (x, *wts), dtype)
+    up = _on(dev, *_up(rng, n, h, w, c, o), dtype=dtype)
+    for emit in (True, False):
+        _held(dev, "upblock", up, dtype, emit_features=emit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,hl,wl,c,o,cfg", [
+    (3, 35, 29, 64, 128, 0),   # 8 x 8 tiles, one output tile
+    (3, 27, 21, 96, 128, 1),   # 8 x 8 tiles, two output tiles, ragged K
+    (2, 7, 5, 40, 200, 2),     # 4 x 4 tiles, O not a multiple of 64
+])
+def test_upblock_ragged_tiles_match_plain(dev, n, hl, wl, c, o, cfg, dtype):
+    """The hi-res image (2 hl x 2 wl) is no multiple of the tile of each
+    upblock configuration, so every configuration runs partial tiles at
+    the bottom and right edges, with both outputs and with rgb only."""
+    assert plan.launch_plan("upblock", n, hl, wl, o, dtype).config == cfg
+    rng = np.random.RandomState(c + o + cfg)
+    args = _on(dev, *_up(rng, n, hl, wl, c, o), dtype=dtype)
+    for emit in (True, False):
+        _held(dev, "upblock", args, dtype, emit_features=emit)
 
 
 def test_wrappers_refuse_widths_the_kernels_do_not_take(dev):
