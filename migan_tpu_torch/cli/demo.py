@@ -69,6 +69,13 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but no CUDA "
                            "device is available")
+    if dev.type == "cuda":
+        # float32 means IEEE float32 on the card, as in the kernels: cuDNN
+        # would run the float32 convs below the kernel levels (and the
+        # detectors of cli/evaluate.py) in TF32. A process-wide setting;
+        # bf16 work is not affected by it.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     dt = DTYPES[dtype]
     generator = load_weights(model_path, GeneratorConfig(resolution=res))
     chain = KernelGenerator(generator.to(device=dev, dtype=dt).eval())

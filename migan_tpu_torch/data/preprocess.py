@@ -24,8 +24,13 @@ from PIL import Image
 
 def read_mask(mask_path: str, invert: bool = False) -> Image.Image:
     """Load a mask as 8-bit L, 255=known 0=hole (reference demo.py:26-45)."""
-    mask = resize_max(Image.open(mask_path), max_size=512,
-                      interpolation=Image.NEAREST)
+    return read_mask_image(Image.open(mask_path), invert=invert)
+
+
+def read_mask_image(mask: Image.Image, invert: bool = False) -> Image.Image:
+    """`read_mask` on an already-open PIL image (the server decodes masks
+    from request bytes instead of a path)."""
+    mask = resize_max(mask, max_size=512, interpolation=Image.NEAREST)
     mask = np.array(mask)
     if mask.ndim == 3:
         if mask.shape[2] == 4:

@@ -16,8 +16,9 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -119,10 +120,18 @@ def timed_build() -> float:
 
 @dataclass
 class LaunchCounter:
-    """Times a kernel was launched; each wrapper adds one per launch."""
+    """Times a kernel was launched; each wrapper adds one per launch,
+    under a lock, since a server launches from its batcher thread while
+    other threads may run forwards or read the counts."""
 
     name: str
     count: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
 
 def check_cuda_args(name: str, dtype: torch.dtype, device: torch.device,

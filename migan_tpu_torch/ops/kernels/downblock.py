@@ -64,5 +64,5 @@ def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
         b_dw.data_ptr(), w_pw.data_ptr(), out.data_ptr(), n, hh, wh, c, o,
         _build.stream_handle(x.device))
     _build.raise_on_error("fused_down_block", err)
-    COUNTER.count += 1
+    COUNTER.add()
     return out

@@ -71,5 +71,5 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
         b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise), out.data_ptr(),
         n, h, w, c, o, int(final_act), _build.stream_handle(x.device))
     _build.raise_on_error("fused_block", err)
-    COUNTER.count += 1
+    COUNTER.add()
     return out

@@ -116,5 +116,5 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
         _build.ptr(rgb), _build.ptr(part), n, hl, wl, c, o,
         _build.stream_handle(dev))
     _build.raise_on_error("fused_up_block", err)
-    COUNTER.count += 1
+    COUNTER.add()
     return _outputs(feat, rgb, emit_features)

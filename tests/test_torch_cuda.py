@@ -254,3 +254,188 @@ def test_wrappers_refuse_widths_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_down_block(*args)
     assert (sepconv.COUNTER.count, downblock.COUNTER.count) == before
+
+
+# ---------------------------------------------------------------------------
+# The serve and evaluate entry points on the card
+# ---------------------------------------------------------------------------
+
+def _weights(tmp_path, res):
+    from migan_tpu_torch.cli.trace import seeded_generator
+    from migan_tpu_torch.io import save_npz
+
+    path = str(tmp_path / f"migan{res}.npz")
+    save_npz(path, seeded_generator(res, res))
+    return path
+
+
+def _u8(a, b) -> int:
+    return int(np.abs(np.asarray(a, np.int32) - np.asarray(b, np.int32))
+               .max())
+
+
+def test_pipeline_stages_on_card_match_cpu(dev):
+    """The app pipeline's pre and post on the card against the CPU: the
+    same box, the generator input within 1e-5 but for one uint8 step at
+    .5 rounding ties, the composite within 1 uint8."""
+    from migan_tpu_torch.export.pipeline import make_pipeline_stages
+
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (1, 700, 900, 3)).astype(np.uint8)
+    mask = np.full((1, 700, 900, 1), 255, np.uint8)
+    mask[0, 200:420, 300:520] = 0
+    out = rng.uniform(-1, 1, (1, 512, 512, 3)).astype(np.float32)
+    results = []
+    for device in ("cpu", "cuda"):
+        pre, post = make_pipeline_stages(512, device=device)
+        x, box = pre(img, mask)
+        results.append((x.cpu(), box.cpu(),
+                        post(img, mask, out, box).cpu()))
+    (x0, b0, y0), (x1, b1, y1) = results
+    assert torch.equal(b0, b1)
+    err = (x0 - x1).abs()
+    assert float(err.max()) <= 2 / 255 + 1e-6
+    assert int((err > 1e-5).sum()) <= 0.01 * err.numel()
+    assert _u8(y0.numpy(), y1.numpy()) <= 1
+
+
+def test_detectors_on_card_match_cpu(dev):
+    """Inception (512 input: the antialiased resize) and LPIPS in float32
+    on the card against the CPU, rtol 1e-3 / atol 1e-4 and per-image LPIPS
+    atol 1e-5: the same sums in another order."""
+    from migan_tpu_torch.evalx import inception, lpips
+
+    inc = inception.import_inception_state_dict(
+        {k: v.numpy() for k, v in inception.seeded_state_dict(0).items()})
+    lp = lpips.import_lpips_state_dict(lpips.seeded_state_dict(1))
+    rng = np.random.RandomState(4)
+    a = torch.from_numpy(rng.rand(2, 512, 512, 3).astype(np.float32))
+    b = (a + 0.1 * torch.from_numpy(rng.randn(*a.shape).astype(
+        np.float32))).clamp(0, 1)
+    want = inception.inception_apply(inc, a)
+    got = inception.inception_apply(inc.to(dev), a.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    want = lp(a, b)
+    got = lp.to(dev)(a.to(dev), b.to(dev)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_load_model_keeps_float32_out_of_tf32(dev, tmp_path):
+    """`load_model` on the card turns TF32 off for cuDNN and matmuls, so
+    the float32 convs below the kernel levels and the detectors of the
+    serve and evaluate CLIs run in IEEE float32, as the kernels do."""
+    from migan_tpu_torch.cli.demo import load_model
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    load_model("migan-256", _weights(tmp_path, 256), "float32", "cuda")
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_served_replies_match_direct_program(dev, tmp_path):
+    """migan-256 behind the port's server on the card: 6 concurrent
+    requests, batched, each reply within 1 uint8 of the direct program
+    at N = 1, and 15 kernel launches per dispatch."""
+    import base64
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from migan_tpu_torch.cli import serve
+    from migan_tpu_torch.cli.demo import load_model
+    from migan_tpu_torch.data.preprocess import postprocess
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    fwd, res = load_model("migan-256", _weights(tmp_path, 256), "float32",
+                          "cuda")
+    srv, batcher = serve.make_server(fwd, res, "127.0.0.1", 0, "migan-256",
+                                     max_batch=4, window_ms=50.0)
+    batcher.warmup()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    rng = np.random.RandomState(5)
+    bodies = []
+    for i in range(6):
+        img = rng.randint(0, 256, (200 + 20 * i, 300, 3)).astype(np.uint8)
+        mask = np.full(img.shape[:2], 255, np.uint8)
+        mask[40:120, 50:200] = 0
+        enc = []
+        for arr in (img, mask):
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="PNG")
+            enc.append(base64.b64encode(buf.getvalue()).decode())
+        bodies.append(json.dumps({"image": enc[0], "mask": enc[1]}).encode())
+    replies = [None] * len(bodies)
+
+    def client(i):
+        req = urllib.request.Request(f"http://127.0.0.1:"
+                                     f"{srv.server_address[1]}/inpaint",
+                                     data=bodies[i])
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            replies[i] = np.asarray(Image.open(io.BytesIO(resp.read())))
+
+    n0 = len(batcher.batch_sizes_served)
+    reset_launch_counts()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        served = batcher.batch_sizes_served[n0:]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.close()
+    assert sum(served) == len(bodies) and max(served) > 1, served
+    assert counts == {"sepconv": 7 * len(served),
+                      "downblock": 4 * len(served),
+                      "upblock": 4 * len(served)}
+    for body, got in zip(bodies, replies):
+        x, img_r, mask_r = serve._decode_request(body, res)
+        want = postprocess(fwd(x).cpu().numpy()[0], img_r, mask_r)
+        assert _u8(got, want) <= 1
+
+
+def test_evaluate_on_card_matches_cpu(dev, tmp_path):
+    """The evaluation CLI on the card and on the CPU, migan-256, 4 seeded
+    images: per-image LPIPS within 1e-4 and the Inception activations
+    within 1e-3 relative L2 (the kernel chain is within ~1e-5 of the
+    plain generator)."""
+    from PIL import Image
+
+    from migan_tpu_torch.cli import evaluate
+    from migan_tpu_torch.evalx import inception, lpips
+
+    images = tmp_path / "images"
+    images.mkdir()
+    rng = np.random.RandomState(6)
+    for i in range(4):
+        Image.fromarray(rng.randint(0, 256, (256, 256, 3)).astype(
+            np.uint8)).save(images / f"{i}.png")
+    torch.save(inception.seeded_state_dict(0), tmp_path / "inc.pth")
+    torch.save(lpips.seeded_state_dict(1), tmp_path / "lp.pth")
+    argv = ["--model-name", "migan-256", "--model-path",
+            _weights(tmp_path, 256), "--real-dir", str(images),
+            "--inception-weights", str(tmp_path / "inc.pth"),
+            "--lpips-weights", str(tmp_path / "lp.pth"),
+            "--batch-size", "4"]
+    runs = []
+    for device in ("cuda", "cpu"):
+        details = {}
+        evaluate.main(argv + ["--device", device], details=details)
+        runs.append(details)
+    card, cpu = runs
+    assert np.abs(card["lpips"] - cpu["lpips"]).max() <= 1e-4
+    for k in ("real_acts", "fake_acts"):
+        rel = (np.linalg.norm(card[k] - cpu[k], axis=1)
+               / np.linalg.norm(cpu[k], axis=1))
+        assert rel.max() <= 1e-3, (k, rel)

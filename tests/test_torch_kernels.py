@@ -190,3 +190,32 @@ def test_wrappers_raise_on_unsupported_device():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_up_block(x, torch.empty(1, 16, 16, 4, device="meta"),
                        torch.empty(16, 16, device="meta"), *w)
+
+
+def test_launch_counter_loses_no_concurrent_add():
+    """A server launches from its batcher thread while other threads may
+    run forwards: the counter's add is one locked read-modify-write, so
+    16 threads adding at a tiny switch interval lose no update."""
+    import sys
+    import threading
+
+    from migan_tpu_torch.ops.kernels._build import LaunchCounter
+
+    counter, n_threads, n_adds = LaunchCounter("stress"), 16, 5000
+
+    def work():
+        for _ in range(n_adds):
+            counter.add()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert counter.count == n_threads * n_adds
