@@ -48,7 +48,22 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      that within the bf16 bound; prints img/s and the share of the loop
      spent waiting for the loader in 3 windows of 128 images for both
      dtypes, and one batch's device work timed alone beside the loop's
-     time per batch.
+     time per batch;
+  7. exports: seeded migan-512 training weights (depthwise, 9 re-param
+     tensors, non-zero noise strengths) through the export CLI
+     (`migan_tpu_torch.cli.export`, `--device cuda`, 4 seeded images):
+     the fold's diff statistic (against the plain folded net, as the
+     reference computes it) below the JAX package's 0.5%, the kernel
+     chain within 2e-3 of the plain folded net, both float32 nets'
+     distances from the training net in float64 on one sample, migan.npz,
+     and migan.pt2, the kernel chain through `torch.export`; loads the
+     `.pt2` in a fresh process that imports only the port, holds it
+     within 1e-6 of the live chain, counts 19 launches per forward and
+     times both at N = 1; then the create_pipeline CLI (buckets 512,1024
+     and dynamic H, W) and each loaded program on seeded images up to
+     1024x768 within 1 uint8 of the live `make_pipeline` at the same
+     bucket padding, pixels outside the box unchanged, 19 launches per
+     call; prints both CLIs' wall times.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -967,6 +982,304 @@ def phase_evaluate(tmp: str, gpu: str, results: dict) -> None:
           "evaluate: bf16 Inception activations beyond their bound")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the export workload on the card
+# ---------------------------------------------------------------------------
+
+EXPORT_SAMPLES = 4
+# the JAX package's bound on the fold statistic (tests/test_export.py:46)
+FOLD_DIFF_LIMIT = 0.5
+# a loaded `.pt2` runs the same kernels on the same inputs as the live
+# chain: any difference beyond this is a fault
+PT2_ATOL = 1e-6
+# (w, h) of the pipeline self-check's images: both buckets
+PIPELINE_CHECK_SIZES = ((512, 512), (1024, 768), (640, 480), (300, 700))
+
+# Run in a fresh interpreter that imports only the port: load the export
+# CLI's migan.pt2, count one forward's launches, hold it against the live
+# chain (`load_model` of the same folded weights), time both at N = 1
+# (median of 20 after 3, in turns) and count the ATen ops (custom ops
+# included) each forward dispatches. Prints one JSON line.
+FRESH_PT2 = r"""
+import json, statistics, sys, time
+import torch
+import migan_tpu_torch.ops.kernels as kernels
+from migan_tpu_torch.cli.demo import load_model
+from migan_tpu_torch.export import torch_export
+pt2, npz, res, seed = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+t0 = time.perf_counter()
+program = torch_export.load(pt2)
+load_s = time.perf_counter() - t0
+live, _ = load_model(f"migan-{res}", npz, device="cuda")
+g = torch.Generator(device="cuda").manual_seed(seed)
+x = torch.rand(1, res, res, 4, device="cuda", generator=g) * 2 - 1
+kernels.reset_launch_counts()
+y = program(x)
+torch.cuda.synchronize()
+counts = kernels.launch_counts()
+want = live(x)
+times = {"pt2": [], "live": []}
+for _ in range(3):
+    program(x), live(x)
+torch.cuda.synchronize()
+for i in range(20):
+    order = [("pt2", program), ("live", live)]
+    for name, f in (order if i % 2 == 0 else order[::-1]):
+        t0 = time.perf_counter()
+        f(x)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+from collections import Counter
+from torch.utils._python_dispatch import TorchDispatchMode
+class Count(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+ops = {}
+for name, f in (("pt2", program), ("live", live)):
+    with Count() as c:
+        c.ops = Counter()
+        f(x)
+    ops[name] = c.ops
+ops_diff = {k: ops["pt2"][k] - ops["live"][k]
+            for k in set(ops["pt2"]) | set(ops["live"])
+            if ops["pt2"][k] != ops["live"][k]}
+ops = {k: sum(v.values()) for k, v in ops.items()}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "migan_tpu"))
+print(json.dumps({
+    "counts": counts, "max_abs_err": (y - want).abs().max().item(),
+    "shape": list(y.shape), "finite": bool(torch.isfinite(y).all()),
+    "load_s": load_s, "bad_modules": bad, "ops": ops,
+    "ops_diff": ops_diff,
+    "pt2_ms": [1e3 * t for t in times["pt2"]],
+    "live_ms": [1e3 * t for t in times["live"]]}))
+"""
+
+
+def _write_pairs(root: str, sizes, seed: int) -> list:
+    """Seeded noise PNGs with a rectangular hole each under root/images
+    and root/masks; returns [(img, mask)]."""
+    from PIL import Image
+
+    images, masks = os.path.join(root, "images"), os.path.join(root, "masks")
+    os.makedirs(images)
+    os.makedirs(masks)
+    pairs = []
+    for i, (w, h) in enumerate(sizes):
+        img, mask, _ = _request(seed + i, w, h)
+        Image.fromarray(img).save(os.path.join(images, f"{i}.png"))
+        Image.fromarray(mask).save(os.path.join(masks, f"{i}.png"))
+        pairs.append((img, mask))
+    return pairs
+
+
+def _float64_distances(train: str, npz: str, root: str, gpu: str) -> None:
+    """The export CLI's first sample through the training net in float64
+    (cuDNN), and through the folded net in float32, plain (cuDNN) and as
+    the kernel chain: each one's distance from the float64 output and the
+    fold statistic's count against it (`np.isclose(rtol=1e-3)`, per
+    512² pixels)."""
+    from migan_tpu_torch.cli.export import _sample_input
+    from migan_tpu_torch.export.fold import diff_count
+    from migan_tpu_torch.io import load_npz, load_train_generator
+    from migan_tpu_torch.models import migan
+    from migan_tpu_torch.models.migan_inference import generator_apply
+    from migan_tpu_torch.models.migan_kernels import KernelGenerator
+
+    cfg = migan.MiganConfig(resolution=512)
+    img = sorted(os.listdir(os.path.join(root, "images")))[0]
+    x = torch.from_numpy(_sample_input(os.path.join(root, "images", img),
+                                       os.path.join(root, "masks"),
+                                       512)[2]).cuda()
+    with torch.no_grad():
+        g64 = load_train_generator(train, cfg).cuda().double().eval()
+        truth = migan.generator_apply(g64, x.double(),
+                                      noise_mode="const").float()
+        del g64
+        folded = load_npz(npz).cuda().eval()
+        outs = {"plain folded net": generator_apply(folded, x),
+                "kernel chain": KernelGenerator(folded)(x)}
+    for name, y in outs.items():
+        d = (y - truth).abs()
+        print(f"phase7 float32 {name} vs the training net in float64 (one "
+              f"512² sample): max|diff| {d.max().item():.3e}, mean "
+              f"{d.mean().item():.3e}, diff statistic against it "
+              f"{100 * diff_count(truth, y) / 512 ** 2:.4f}% (|output| "
+              f"max {truth.abs().max().item():.3f}; {gpu})", flush=True)
+
+
+def phase_export(tmp: str, gpu: str, results: dict) -> None:
+    """`cli.export` on seeded migan-512 training weights, its `.pt2` in a
+    fresh process, then `cli.create_pipeline` and its programs against
+    the live pipeline."""
+    import subprocess
+
+    import numpy as np
+
+    from migan_tpu_torch.cli import create_pipeline, export
+    from migan_tpu_torch.cli.demo import load_model
+    from migan_tpu_torch.export import torch_export
+    from migan_tpu_torch.export.pipeline import make_pipeline
+    from migan_tpu_torch.io import save_train_npz
+    from migan_tpu_torch.models import migan
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    def per(forwards):
+        return {k: v * forwards for k, v in EXPECTED_LAUNCHES[512].items()}
+
+    # seeded migan-512 training weights at full width (depthwise, 9
+    # re-param tensors), seeded non-zero noise strengths
+    cfg = migan.MiganConfig(resolution=512)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    g = migan.generator_init(cfg, gen)
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith("noise_strength"):
+                p.copy_(torch.randn((), generator=gen) * 0.3)
+    train = os.path.join(tmp, "train512.npz")
+    save_train_npz(train, g)
+    print(f"phase7 training G: {migan.count_params(g):,} parameters "
+          f"(migan-512, depthwise, 9 re-param tensors)", flush=True)
+    del g
+
+    root = os.path.join(tmp, "export")
+    _write_pairs(root, DEMO_SIZES + ((768, 512),), SEED + 200)
+    out = os.path.join(root, "out")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = export.main([
+        "--model-path", train, "--resolution", "512", "--origs-dir",
+        os.path.join(root, "images"), "--masks-dir",
+        os.path.join(root, "masks"), "--output-dir", out, "--num-samples",
+        str(EXPORT_SAMPLES), "--device", "cuda"])
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    counts = launch_counts()
+    record_path(results, "export", counts)
+    # the diff statistic's forwards; tracing launches nothing
+    check(counts == per(EXPORT_SAMPLES), f"export: launches {counts}, "
+          f"expected {per(EXPORT_SAMPLES)}")
+    pct = stats["diff_pct"]
+    check(pct < FOLD_DIFF_LIMIT, f"export: fold diff {pct}% beyond "
+          f"{FOLD_DIFF_LIMIT}%")
+    check(stats["chain_max_abs_diff"] <= GEN_ATOL, f"export: the kernel "
+          f"chain {stats['chain_max_abs_diff']} from the plain folded net")
+    pt2 = os.path.join(out, "models", "migan.pt2")
+    npz = os.path.join(out, "models", "migan.npz")
+    _float64_distances(train, npz, root, gpu)
+    print(f"phase7 export CLI: Average diff {pct:.6f}% over "
+          f"{EXPORT_SAMPLES} images (the fold: train-G const vs the plain "
+          f"folded net; limit {FOLD_DIFF_LIMIT}%); through the kernel "
+          f"chain {stats['chain_diff_pct']:.6f}%, the chain within "
+          f"{stats['chain_max_abs_diff']:.3e} of the plain folded net "
+          f"(limit {GEN_ATOL}); "
+          f"{export_s:.2f} s wall (fold, diff statistic, migan.npz, "
+          f"torch.export of the kernel chain, {os.path.getsize(pt2):,} "
+          f"bytes of .pt2), launches {counts} ({gpu})", flush=True)
+
+    r = subprocess.run(
+        [sys.executable, "-c", FRESH_PT2, pt2, npz, "512", str(SEED + 8)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    check(r.returncode == 0, f"export .pt2 in a fresh process failed: "
+          f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    fresh = json.loads(r.stdout.strip().splitlines()[-1])
+    record_path(results, "export .pt2 (fresh process)", fresh["counts"])
+    check(fresh["counts"] == per(1), f"export .pt2: launches "
+          f"{fresh['counts']}, expected {per(1)}")
+    check(not fresh["bad_modules"], f"export .pt2: the fresh process "
+          f"imported {fresh['bad_modules']}")
+    check(fresh["finite"] and fresh["shape"] == [1, 512, 512, 3],
+          f"export .pt2: output {fresh['shape']}, finite "
+          f"{fresh['finite']}")
+    check(fresh["max_abs_err"] <= PT2_ATOL, f"export .pt2: "
+          f"{fresh['max_abs_err']} from the live chain")
+    pt2_ms = statistics.median(fresh["pt2_ms"])
+    live_ms = statistics.median(fresh["live_ms"])
+    print(f"phase7 export .pt2 in a fresh process: loaded in "
+          f"{fresh['load_s']:.2f} s, launches {fresh['counts']} per "
+          f"forward, max|diff| from the live chain "
+          f"{fresh['max_abs_err']:.3e} (limit {PT2_ATOL})", flush=True)
+    print(f"phase7 migan-512 N=1 float32 forward: loaded .pt2 "
+          f"{pt2_ms:.3f} ms, live chain {live_ms:.3f} ms (median of 20 "
+          f"after 3, in turns, one process; .pt2 spread "
+          f"{min(fresh['pt2_ms']):.3f}-{max(fresh['pt2_ms']):.3f}, live "
+          f"{min(fresh['live_ms']):.3f}-{max(fresh['live_ms']):.3f}; "
+          f"{gpu}); ops dispatched per forward: .pt2 {fresh['ops']['pt2']}, "
+          f"live {fresh['ops']['live']}, the difference by op "
+          f"{fresh['ops_diff']}", flush=True)
+
+    pipe_root = os.path.join(tmp, "pipeline")
+    pairs = _write_pairs(pipe_root, PIPELINE_CHECK_SIZES, SEED + 300)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    written = create_pipeline.main([
+        "--resolution", "512", "--model-path", npz, "--images-dir",
+        os.path.join(pipe_root, "images"), "--masks-dir",
+        os.path.join(pipe_root, "masks"), "--output-dir",
+        os.path.join(pipe_root, "out"), "--device", "cuda", "--buckets",
+        "512,1024", "--polymorphic"])
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    counts = launch_counts()
+    record_path(results, "create_pipeline", counts)
+    check(set(written) == {"512", "1024", "dynamic"},
+          f"create_pipeline wrote {sorted(written)}")
+    # its self-check: one bucket program call per image
+    check(counts == per(len(pairs)), f"create_pipeline: launches "
+          f"{counts}, expected {per(len(pairs))}")
+    print(f"phase7 create_pipeline CLI: buckets 512,1024 and dynamic H, W "
+          f"exported and {len(pairs)} images self-checked in {pipe_s:.2f} "
+          f"s wall, launches {counts} ({gpu})", flush=True)
+
+    forward, _ = load_model("migan-512", npz, device="cuda")
+    live = make_pipeline(forward, 512, device="cuda")
+    programs = {k: torch_export.load(v) for k, v in written.items()}
+    worst, calls = 0, 0
+    total = {k: 0 for k in EXPECTED_LAUNCHES[512]}
+    for img, mask in pairs:
+        h, w = mask.shape
+        b = 512 if max(h, w) <= 512 else 1024
+        pi = np.zeros((1, b, b, 3), np.uint8)
+        pm = np.full((1, b, b, 1), 255, np.uint8)
+        pi[0, :h, :w], pm[0, :h, :w, 0] = img, mask
+        for name, (ti, tm) in ((str(b), (pi, pm)),
+                               ("dynamic", (img[None], mask[None, :, :,
+                                                            None]))):
+            ti = torch.from_numpy(np.ascontiguousarray(ti)).cuda()
+            tm = torch.from_numpy(np.ascontiguousarray(tm)).cuda()
+            reset_launch_counts()
+            got = programs[name](ti, tm)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            check(c == per(1), f"create_pipeline {name} program {w}x{h}: "
+                  f"launches {c}")
+            for k in total:
+                total[k] += c[k]
+            calls += 1
+            want = live(ti, tm)
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            worst = max(worst, int(np.abs(got.astype(np.int32)
+                                          - want).max()))
+            x_min, x_max, y_min, y_max = live.pre(ti, tm)[1].tolist()
+            outside = np.ones(got.shape[1:3], bool)
+            outside[y_min:y_max, x_min:x_max] = False
+            check(np.array_equal(got[0][outside],
+                                 ti.cpu().numpy()[0][outside]),
+                  f"create_pipeline {name} {w}x{h}: pixels outside the box "
+                  f"changed")
+    record_path(results, "create_pipeline .pt2", total)
+    check(worst <= 1, f"create_pipeline: a program {worst} uint8 from the "
+          f"live pipeline")
+    print(f"phase7 create_pipeline programs: {calls} calls (each image "
+          f"through its bucket's program and the dynamic one), every output "
+          f"within {worst} uint8 of the live make_pipeline, pixels outside "
+          f"the box unchanged, {per(1)} launches per call", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -995,6 +1308,7 @@ def main() -> int:
         phase_times(forwards, gpu)
         phase_serve(forwards[512, "float32"][0], tmp, gpu, results)
         phase_evaluate(tmp, gpu, results)
+        phase_export(tmp, gpu, results)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

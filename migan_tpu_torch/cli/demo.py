@@ -79,12 +79,21 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
     dt = DTYPES[dtype]
     generator = load_weights(model_path, GeneratorConfig(resolution=res))
     chain = KernelGenerator(generator.to(device=dev, dtype=dt).eval())
+    return ModelForward(chain, dev, dt), res
 
-    def forward(x):
-        x = torch.as_tensor(x).to(device=dev, dtype=dt).contiguous()
-        return chain(x).float()
 
-    return forward, res
+class ModelForward(torch.nn.Module):
+    """`load_model`'s forward: [N,H,W,4] array or tensor -> float32
+    [N,H,W,3] tensor on the chain's device, through the kernel chain. A
+    module, so that `torch.export` takes it with the chain's weights."""
+
+    def __init__(self, chain, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.chain, self.device, self.dtype = chain, device, dtype
+
+    def forward(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        return self.chain(x.contiguous()).float()
 
 
 def _list_images(images_dir) -> list:

@@ -21,6 +21,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..ops.resize import scale_and_translate
 
@@ -186,18 +187,31 @@ def make_pipeline_stages(resolution: int, padding: int = 128,
     return pre, post
 
 
+class Pipeline(nn.Module):
+    """pipeline(image_u8 [1, H, W, 3], mask_u8 [1, H, W, 1]) -> uint8
+    [1, H, W, 3] tensor on its device: `make_pipeline_stages`' halves
+    around the generator. A module, so that `torch.export` takes it whole
+    with the generator's weights (`cli/create_pipeline.py`)."""
+
+    def __init__(self, generator_fn: Callable[[torch.Tensor], torch.Tensor],
+                 resolution: int, padding: int = 128, device="cuda"):
+        super().__init__()
+        self.generator = generator_fn
+        self.pre, self.post = make_pipeline_stages(resolution, padding,
+                                                   device)
+
+    def forward(self, image, mask) -> torch.Tensor:
+        x, box4 = self.pre(image, mask)
+        return self.post(image, mask, self.generator(x), box4)
+
+
 def make_pipeline(generator_fn: Callable[[torch.Tensor], torch.Tensor],
-                  resolution: int, padding: int = 128, device="cuda"):
+                  resolution: int, padding: int = 128,
+                  device="cuda") -> Pipeline:
     """pipeline(image_u8 [1, H, W, 3], mask_u8 [1, H, W, 1]) -> uint8
     [1, H, W, 3] tensor on `device`.
 
     generator_fn: [1, res, res, 4] float32 tensor on `device` ->
     [1, res, res, 3] in [-1, 1] (the `forward` of `cli.demo.load_model`).
     """
-    pre, post = make_pipeline_stages(resolution, padding, device)
-
-    def pipeline(image, mask) -> torch.Tensor:
-        x, box4 = pre(image, mask)
-        return post(image, mask, generator_fn(x), box4)
-
-    return pipeline
+    return Pipeline(generator_fn, resolution, padding, device)

@@ -59,7 +59,9 @@ def save_npz(path: str, generator: Generator) -> None:
         v = v.detach().to("cpu", torch.float32).numpy()
         if v.ndim == 4:                           # OIHW -> HWIO
             v = v.transpose(2, 3, 1, 0)
-        flat[key.replace(".", "/")] = np.ascontiguousarray(v)
+        # np.array keeps a 0-d noise_strength 0-d (ascontiguousarray
+        # would make it [1])
+        flat[key.replace(".", "/")] = np.array(v, order="C")
     np.savez(path, **flat)
 
 

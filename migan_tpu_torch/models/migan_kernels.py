@@ -21,34 +21,57 @@ the Pallas kernels in JAX.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import torch
+from torch import nn
 
 from ..ops import upsample2d
 from ..ops.kernels import fused_block, fused_down_block, fused_up_block
 from ..ops.kernels.sepconv import sepconv_plain
 from .migan_inference import (
-    ACT, Conv, Generator, GeneratorConfig, SeparableConv, conv1x1_apply,
-    encoder_block_apply, generator_apply, resample_filter,
-    synthesis_block_apply, synthesis_first_apply, _noise_for,
+    ACT, EncoderBlock, Generator, GeneratorConfig, SeparableConv,
+    SynthesisBlock, conv1x1_apply, encoder_block_apply, generator_apply,
+    resample_filter, synthesis_block_apply, synthesis_first_apply,
+    _noise_for,
 )
 
 
-@dataclass(frozen=True)
-class SepWeights:
-    """A SeparableConv's weights in the kernels' layout, contiguous."""
+class SepWeights(nn.Module):
+    """A SeparableConv's weights in the kernels' layout, as contiguous
+    buffers (copies; the generator's parameters stay as they are)."""
 
-    w_dw: torch.Tensor   # [3, 3, C]
-    b_dw: torch.Tensor   # [C]
-    w_pw: torch.Tensor   # [C, O]
+    def __init__(self, p: SeparableConv):
+        super().__init__()
+        self.register_buffer("w_dw",          # [3, 3, C]
+                             p.conv1.weight[:, 0].permute(1, 2, 0).clone(
+                                 memory_format=torch.contiguous_format))
+        self.register_buffer("b_dw", p.conv1.bias.clone())           # [C]
+        self.register_buffer("w_pw",          # [C, O]
+                             p.conv2.weight[:, :, 0, 0].t().contiguous())
 
-    @classmethod
-    def of(cls, p: SeparableConv) -> "SepWeights":
-        return cls(p.conv1.weight[:, 0].permute(1, 2, 0).contiguous(),
-                   p.conv1.bias.contiguous(),
-                   p.conv2.weight[:, :, 0, 0].t().contiguous())
+
+class _EncoderLevel(nn.Module):
+    """An encoder kernel level: conv1 and conv2 (`SepWeights`)."""
+
+    def __init__(self, p: EncoderBlock):
+        super().__init__()
+        self.conv1, self.conv2 = SepWeights(p.conv1), SepWeights(p.conv2)
+
+
+class _SynthesisLevel(nn.Module):
+    """A synthesis kernel level: conv1, conv2 (`SepWeights`), torgb's
+    w_rgb [O, 3] and b_rgb [3], and the two scaled noise planes at the
+    level's own resolution."""
+
+    def __init__(self, p: SynthesisBlock, noise):
+        super().__init__()
+        self.conv1, self.conv2 = SepWeights(p.conv1), SepWeights(p.conv2)
+        self.register_buffer("w_rgb", p.torgb.weight[:, :, 0, 0].t()
+                             .contiguous())
+        self.register_buffer("b_rgb", p.torgb.bias.clone())
+        self.register_buffer("noise1", noise[0])
+        self.register_buffer("noise2", noise[1])
 
 
 def kernel_levels(cfg: GeneratorConfig) -> List[int]:
@@ -75,33 +98,28 @@ def kernel_shapes(cfg: GeneratorConfig) -> List[Tuple]:
     return shapes
 
 
-def _torgb(p: Conv):
-    return p.weight[:, :, 0, 0].t().contiguous(), p.bias.contiguous()
-
-
-class KernelGenerator:
-    """Forward of a `Generator` through the kernel chain.
+class KernelGenerator(nn.Module):
+    """Forward of a `Generator` through the kernel chain, as a module.
 
     The kernels' weight copies, and the scaled noise planes at the model's
-    own resolution, are made once, here: build it after the generator has
-    its final device, dtype and weights.
+    own resolution, are registered buffers made once, here: build it
+    after the generator has its final device, dtype and weights. Being a
+    module, it is what `torch.export` takes (`export/torch_export.py`).
     """
 
     def __init__(self, generator: Generator):
+        super().__init__()
         cfg = generator.cfg
         self.generator = generator
         self.kernel_res = kernel_levels(cfg)
         self.n_kernel_levels = len(self.kernel_res)
         enc, syn = generator.encoder, generator.synthesis
         with torch.no_grad():
-            self.enc = {r: (SepWeights.of(enc[f"b{r}"].conv1),
-                            SepWeights.of(enc[f"b{r}"].conv2))
-                        for r in self.kernel_res}
-            self.syn = {r: (SepWeights.of(syn[f"b{r}"].conv1),
-                            SepWeights.of(syn[f"b{r}"].conv2),
-                            *_torgb(syn[f"b{r}"].torgb))
-                        for r in self.kernel_res}
-            self.noise = {r: self._noise(r, r, r) for r in self.kernel_res}
+            self.enc_levels = nn.ModuleDict({
+                f"b{r}": _EncoderLevel(enc[f"b{r}"]) for r in self.kernel_res})
+            self.syn_levels = nn.ModuleDict({
+                f"b{r}": _SynthesisLevel(syn[f"b{r}"], self._noise(r, r, r))
+                for r in self.kernel_res})
 
     def _noise(self, r: int, h: int, w: int):
         """Level r's two scaled noise planes at [h, w], contiguous."""
@@ -111,7 +129,7 @@ class KernelGenerator:
                      for q in (p.conv1, p.conv2))
 
     @torch.no_grad()
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, 4] contiguous, of the generator's dtype and device
         -> [N, H, W, 3]."""
         g = self.generator
@@ -127,7 +145,8 @@ class KernelGenerator:
         z = ACT(conv1x1_apply(enc[f"b{top}"].fromrgb, x))
         feats: Dict[int, torch.Tensor] = {}
         for r in self.kernel_res:
-            w1, w2 = self.enc[r]
+            q = self.enc_levels[f"b{r}"]
+            w1, w2 = q.conv1, q.conv2
             feats[r] = fused_block(z, w1.w_dw, w1.b_dw, w1.w_pw)
             z = fused_down_block(feats[r], w2.w_dw, w2.b_dw, w2.w_pw)
 
@@ -143,7 +162,8 @@ class KernelGenerator:
 
         # ---- synthesis: kernel levels ----------------------------------
         for r in reversed(self.kernel_res):
-            w1, w2, w_rgb, b_rgb = self.syn[r]
+            q = self.syn_levels[f"b{r}"]
+            w1, w2 = q.conv1, q.conv2
             if r == self.kernel_res[-1]:
                 t = sepconv_plain(zz, w1.w_dw, w1.b_dw, w1.w_pw,
                                   final_act=False)
@@ -151,14 +171,15 @@ class KernelGenerator:
                 t = fused_block(zz, w1.w_dw, w1.b_dw, w1.w_pw,
                                 final_act=False)
             h, w = feats[r].shape[1:3]
-            n1, n2 = (self.noise[r] if (h, w) == (r, r)
+            # static where torch.export traces it: the model's resolution
+            n1, n2 = ((q.noise1, q.noise2) if (h, w) == (r, r)
                       else self._noise(r, h, w))
             if r == top:
                 rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
-                                     w2.w_pw, n2, w_rgb, b_rgb,
+                                     w2.w_pw, n2, q.w_rgb, q.b_rgb,
                                      emit_features=False)
             else:
                 zz, rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
-                                         w2.w_pw, n2, w_rgb, b_rgb)
+                                         w2.w_pw, n2, q.w_rgb, q.b_rgb)
             img = upsample2d(img, f) + rgb
         return img

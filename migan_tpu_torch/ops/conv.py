@@ -1,20 +1,29 @@
-"""Plain grouped 2-D convolution, NHWC x HWIO -> NHWC (port of
-`migan_tpu/ops/conv.py::conv2d`), through `F.conv2d` on the NCHW view of
-the same memory. This is the plain path that the fused kernels replace."""
+"""Convolutions, NHWC x HWIO -> NHWC (port of `migan_tpu/ops/conv.py`;
+reference torch_utils/ops/conv2d_resample.py:59-154), through `F.conv2d`
+on the NCHW view of the same memory.
+
+`conv2d` is the plain grouped conv, the plain path that the fused kernels
+replace; `conv2d_resample` is the one conv primitive of the training nets,
+a conv with FIR up- or down-sampling in the JAX package's four orderings.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .filters import filter_size, parse_padding
+from .upfirdn2d import upfirdn2d
+
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
-           groups: int = 1) -> torch.Tensor:
+           groups: int = 1, flip_weight: bool = True) -> torch.Tensor:
     """x [N, H, W, Cin], w [kh, kw, Cin // groups, O] -> contiguous
     [N, H', W', O].
 
-    padding: int, (py, px), or ((py0, py1), (px0, px1)). Correlation, as
-    torch and lax compute it.
+    padding: int, (py, px), or ((py0, py1), (px0, px1)); negative crops.
+    flip_weight=True correlates, as torch and lax compute it; False is a
+    true convolution (the weights flipped in space).
     """
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError(f"expected NHWC x and HWIO w, got "
@@ -28,9 +37,64 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
     (py0, py1), (px0, px1) = padding
     y = x.permute(0, 3, 1, 2)
     w = w.permute(3, 2, 0, 1).to(x.dtype)
-    if py0 == py1 and px0 == px1:
+    if not flip_weight:
+        w = w.flip([2, 3])
+    if py0 == py1 and px0 == px1 and py0 >= 0 and px0 >= 0:
         y = F.conv2d(y, w, stride=stride, padding=(py0, px0), groups=groups)
     else:
         y = F.conv2d(F.pad(y, [px0, px1, py0, py1]), w, stride=stride,
                      groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
+                    f: torch.Tensor | None = None, up: int = 1,
+                    down: int = 1, padding=0, groups: int = 1,
+                    flip_weight: bool = True,
+                    flip_filter: bool = False) -> torch.Tensor:
+    """Conv with optional FIR-filtered up/down-sampling; x NHWC, w HWIO,
+    f a prepared filter (`filters.setup_filter`). padding is with respect
+    to the up-sampled image. As in the JAX package:
+
+      - 1x1 kernel and up > 1: the conv at low resolution, then the FIR
+        up-sampling;
+      - down > 1: the FIR at full resolution, then a strided conv;
+      - neither: one conv with the (possibly asymmetric) padding;
+      - any other up: zero-insert + FIR, the conv, then FIR-down if asked.
+    """
+    if not (isinstance(up, int) and up >= 1 and isinstance(down, int)
+            and down >= 1):
+        raise ValueError(f"conv2d_resample: up {up!r} down {down!r}")
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    fw, fh = filter_size(f)
+    px0, px1, py0, py1 = parse_padding(padding)
+    if up > 1:
+        px0 += (fw + up - 1) // 2
+        px1 += (fw - up) // 2
+        py0 += (fh + up - 1) // 2
+        py1 += (fh - up) // 2
+    if down > 1:
+        px0 += (fw - down + 1) // 2
+        px1 += (fw - down) // 2
+        py0 += (fh - down + 1) // 2
+        py1 += (fh - down) // 2
+
+    if kw == 1 and kh == 1 and up > 1 and down == 1:
+        x = conv2d(x, w, groups=groups, flip_weight=flip_weight)
+        return upfirdn2d(x, f, up=up, padding=[px0, px1, py0, py1],
+                         gain=up ** 2, flip_filter=flip_filter)
+    if down > 1 and up == 1:
+        x = upfirdn2d(x, f, padding=[px0, px1, py0, py1],
+                      flip_filter=flip_filter)
+        return conv2d(x, w, stride=down, groups=groups,
+                      flip_weight=flip_weight)
+    if up == 1 and down == 1:
+        return conv2d(x, w, padding=((py0, py1), (px0, px1)), groups=groups,
+                      flip_weight=flip_weight)
+    x = upfirdn2d(x, f if up > 1 else None, up=up,
+                  padding=[px0, px1, py0, py1], gain=up ** 2,
+                  flip_filter=flip_filter)
+    x = conv2d(x, w, groups=groups, flip_weight=flip_weight)
+    if down > 1:
+        x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
+    return x

@@ -1,8 +1,12 @@
 """Hand-written CUDA kernels for the three fused blocks of the main path,
 with their plain PyTorch versions and launch counters.
 
-Importing this package builds nothing; the library is compiled at the
-first launch on a CUDA tensor (`_build.load_library`).
+Each kernel is a `torch.library` custom op (`migan::fused_block`,
+`migan::fused_down_block`, `migan::fused_up_block`), registered when this
+package is imported, so a program that `torch.export` saves calls them by
+name: import `migan_tpu_torch` before `torch.export.load` of such a
+`.pt2`. Importing builds nothing; the library is compiled at the first
+launch on a CUDA tensor (`_build.load_library`).
 """
 
 from . import downblock, sepconv, upblock

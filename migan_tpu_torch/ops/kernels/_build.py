@@ -134,6 +134,14 @@ class LaunchCounter:
             self.count += 1
 
 
+def check_device(name: str, t: torch.Tensor) -> None:
+    """Raise unless t lies on the CPU (the plain version) or a CUDA device
+    (the kernel): a custom op would hand any other device, meta included,
+    to its fake implementation and compute nothing."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def check_cuda_args(name: str, dtype: torch.dtype, device: torch.device,
                     **tensors) -> None:
     """Raise unless every tensor lies on `device`, has `dtype` and is

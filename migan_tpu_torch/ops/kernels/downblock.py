@@ -4,8 +4,10 @@
 Port of `migan_tpu/ops/pallas/downblock.py::fused_down_block` as one CUDA
 kernel (`csrc/downblock.cu`: y once per hi-res pixel, separable FIR,
 pointwise product on tensor cores) on contiguous NHWC tensors. Its launch
-geometry comes from `plan.launch_plan`. On a CPU tensor the wrapper runs
-`downblock_plain`, the same function in plain PyTorch.
+geometry comes from `plan.launch_plan`. The wrapper calls the
+`torch.library` custom op `migan::fused_down_block`: the ctypes launch on
+CUDA, `downblock_plain` (the same function in plain PyTorch) on the CPU,
+and a fake implementation for `torch.export`.
 """
 
 from __future__ import annotations
@@ -31,18 +33,9 @@ def downblock_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     return ACT(conv2d(y, w_pw[None, None]))
 
 
-def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
-                     b_dw: torch.Tensor, w_pw: torch.Tensor) -> torch.Tensor:
-    """Fused dw3x3 + b -> act -> FIR-down2 -> pw1x1 -> act.
-
-    x: [N, Hh, Wh, C] contiguous, Hh and Wh even; w_dw: [3, 3, C];
-    b_dw: [C]; w_pw: [C, O]; all of one dtype; C and O multiples of 8 on CUDA.
-    Returns [N, Hh/2, Wh/2, O].
-    """
-    if x.device.type == "cpu":
-        return downblock_plain(x, w_dw, b_dw, w_pw)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_down_block: unsupported device {x.device}")
+def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
+            w_pw: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's launch (ctypes), one count per launch."""
     n, hh, wh, c = x.shape
     o = w_pw.shape[-1]
     if (hh % 2 or wh % 2 or w_dw.shape != (3, 3, c) or b_dw.shape != (c,)
@@ -66,3 +59,32 @@ def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
     _build.raise_on_error("fused_down_block", err)
     COUNTER.add()
     return out
+
+
+@torch.library.custom_op("migan::fused_down_block", mutates_args=(),
+                         device_types="cuda")
+def fused_down_block_op(x: torch.Tensor, w_dw: torch.Tensor,
+                        b_dw: torch.Tensor, w_pw: torch.Tensor
+                        ) -> torch.Tensor:
+    return _launch(x, w_dw, b_dw, w_pw)
+
+
+fused_down_block_op.register_kernel("cpu")(downblock_plain)
+
+
+@fused_down_block_op.register_fake
+def _(x, w_dw, b_dw, w_pw):
+    n, hh, wh, _ = x.shape
+    return x.new_empty((n, hh // 2, wh // 2, w_pw.shape[-1]))
+
+
+def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
+                     b_dw: torch.Tensor, w_pw: torch.Tensor) -> torch.Tensor:
+    """Fused dw3x3 + b -> act -> FIR-down2 -> pw1x1 -> act.
+
+    x: [N, Hh, Wh, C] contiguous, Hh and Wh even; w_dw: [3, 3, C];
+    b_dw: [C]; w_pw: [C, O]; all of one dtype; C and O multiples of 8 on CUDA.
+    Returns [N, Hh/2, Wh/2, O]. CPU tensors take the plain version.
+    """
+    _build.check_device("fused_down_block", x)
+    return fused_down_block_op(x, w_dw, b_dw, w_pw)

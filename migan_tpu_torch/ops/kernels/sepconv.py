@@ -5,8 +5,13 @@ Port of `migan_tpu/ops/pallas/sepconv.py::fused_block` and
 (`csrc/sepconv.cu`, pointwise product on tensor cores) on contiguous NHWC
 tensors, with `final_act=False` for a synthesis conv1's low-res half, whose
 activation follows the up-sample. Its launch geometry comes from
-`plan.launch_plan`. On a CPU tensor the wrapper runs `sepconv_plain`, the
-same function in plain PyTorch.
+`plan.launch_plan`.
+
+The wrapper calls the `torch.library` custom op `migan::fused_block`, so
+that `torch.export` keeps the kernel in the program it traces: its CUDA
+implementation is the ctypes launch, its CPU implementation
+`sepconv_plain`, the same function in plain PyTorch, and its fake
+implementation gives the output's shape.
 """
 
 from __future__ import annotations
@@ -35,20 +40,10 @@ def sepconv_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     return ACT(y) if final_act else y
 
 
-def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
-                w_pw: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                final_act: bool = True) -> torch.Tensor:
-    """Fused dw3x3 + b -> act -> pw1x1 (+noise) (-> act).
-
-    x: [N, H, W, C] contiguous; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
-    noise: optional [H, W] per-pixel scalar (already scaled by its
-    strength), broadcast over batch and channels. All of one dtype; C and
-    O multiples of 8 on CUDA. Returns [N, H, W, O].
-    """
-    if x.device.type == "cpu":
-        return sepconv_plain(x, w_dw, b_dw, w_pw, noise, final_act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_block: unsupported device {x.device}")
+def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
+            w_pw: torch.Tensor, noise: Optional[torch.Tensor],
+            final_act: bool) -> torch.Tensor:
+    """The CUDA kernel's launch (ctypes), one count per launch."""
     n, h, w, c = x.shape
     o = w_pw.shape[-1]
     if (w_dw.shape != (3, 3, c) or b_dw.shape != (c,)
@@ -73,3 +68,34 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     _build.raise_on_error("fused_block", err)
     COUNTER.add()
     return out
+
+
+@torch.library.custom_op("migan::fused_block", mutates_args=(),
+                         device_types="cuda")
+def fused_block_op(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
+                   w_pw: torch.Tensor, noise: Optional[torch.Tensor],
+                   final_act: bool) -> torch.Tensor:
+    return _launch(x, w_dw, b_dw, w_pw, noise, final_act)
+
+
+fused_block_op.register_kernel("cpu")(sepconv_plain)
+
+
+@fused_block_op.register_fake
+def _(x, w_dw, b_dw, w_pw, noise, final_act):
+    return x.new_empty((*x.shape[:3], w_pw.shape[-1]))
+
+
+def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
+                w_pw: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                final_act: bool = True) -> torch.Tensor:
+    """Fused dw3x3 + b -> act -> pw1x1 (+noise) (-> act).
+
+    x: [N, H, W, C] contiguous; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
+    noise: optional [H, W] per-pixel scalar (already scaled by its
+    strength), broadcast over batch and channels. All of one dtype; C and
+    O multiples of 8 on CUDA. Returns [N, H, W, O]. CPU tensors take the
+    plain version; any device but CPU and CUDA raises.
+    """
+    _build.check_device("fused_block", x)
+    return fused_block_op(x, w_dw, b_dw, w_pw, noise, final_act)

@@ -6,14 +6,19 @@ optional torgb epilogue ``rgb = y . w_rgb + b_rgb``.
 Port of `migan_tpu/ops/pallas/upblock.py::fused_up_block` as one CUDA
 kernel (`csrc/upblock.cu`: t once per hi-res pixel of a tile, pointwise
 product on tensor cores, torgb summed in a fixed order) on contiguous NHWC
-tensors. Its launch geometry comes from `plan.launch_plan`. On a CPU
-tensor the wrapper runs `upblock_plain`, the same function in plain
-PyTorch.
+tensors. Its launch geometry comes from `plan.launch_plan`.
+
+The wrapper calls the `torch.library` custom op `migan::fused_up_block`
+(the ctypes launch on CUDA, `upblock_plain`'s arithmetic on the CPU, a
+fake implementation for `torch.export`). A custom op has a fixed output
+schema, so the op always returns the pair (features, rgb), with an empty
+[0] tensor, allocated and never written, in place of an output not
+asked for; the wrapper returns what its arguments ask for, as before.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,9 +38,8 @@ def _outputs(feat, rgb, emit_features):
     return (feat, rgb) if emit_features else rgb
 
 
-def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
-                  w_rgb=None, b_rgb=None, emit_features=True):
-    """The same outputs as :func:`fused_up_block`, in plain PyTorch."""
+def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb):
+    """(features, rgb or None) in plain PyTorch."""
     t = upsample2d(x_lo, setup_filter(FIR_TAPS, device=x_lo.device), up=2)
     t = ACT(t + noise_up[None, :, :, None]) + skip
     c = t.shape[-1]
@@ -45,37 +49,20 @@ def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
         y = y + noise2[None, :, :, None]
     y = ACT(y)
     rgb = None if w_rgb is None else conv2d(y, w_rgb[None, None]) + b_rgb
-    return _outputs(y, rgb, emit_features)
+    return y, rgb
 
 
-def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
-                   noise_up: torch.Tensor, w_dw: torch.Tensor,
-                   b_dw: torch.Tensor, w_pw: torch.Tensor,
-                   noise2: Optional[torch.Tensor] = None,
-                   w_rgb: Optional[torch.Tensor] = None,
-                   b_rgb: Optional[torch.Tensor] = None,
-                   emit_features: bool = True):
-    """Fused up2 + noise + act + skip + dw3x3/pw1x1 (+noise2) + act
-    (+ torgb).
+def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
+                  w_rgb=None, b_rgb=None, emit_features=True):
+    """The same outputs as :func:`fused_up_block`, in plain PyTorch."""
+    return _outputs(*_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
+                            w_rgb, b_rgb), emit_features)
 
-    x_lo: [N, Hl, Wl, C]; skip: [N, 2Hl, 2Wl, C]; noise_up, noise2:
-    [2Hl, 2Wl] pre-scaled noise; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
-    w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue. All contiguous and
-    of one dtype; C and O multiples of 8 on CUDA.
 
-    Returns the features [N, 2Hl, 2Wl, O]; with w_rgb the tuple
-    (features, rgb [N, 2Hl, 2Wl, 3]), or only rgb when emit_features is
-    False (the top level, where nothing else reads the features).
-    """
-    if (w_rgb is None) != (b_rgb is None):
-        raise ValueError("fused_up_block: pass both w_rgb and b_rgb")
-    if w_rgb is None and not emit_features:
-        raise ValueError("fused_up_block: no output requested")
-    if x_lo.device.type == "cpu":
-        return upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                             w_rgb, b_rgb, emit_features)
-    if x_lo.device.type != "cuda":
-        raise ValueError(f"fused_up_block: unsupported device {x_lo.device}")
+def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+            emit_features):
+    """The CUDA kernel's launch (ctypes), one count per launch. Returns
+    (features or None, rgb or None)."""
     n, hl, wl, c = x_lo.shape
     o = w_pw.shape[-1]
     hw = (2 * hl, 2 * wl)
@@ -117,4 +104,72 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
         _build.stream_handle(dev))
     _build.raise_on_error("fused_up_block", err)
     COUNTER.add()
-    return _outputs(feat, rgb, emit_features)
+    return feat, rgb
+
+
+def _pair(x_lo, feat, rgb):
+    """The op's fixed (features, rgb) pair: [0] for a missing output."""
+    return (x_lo.new_empty((0,)) if feat is None else feat,
+            x_lo.new_empty((0,)) if rgb is None else rgb)
+
+
+@torch.library.custom_op("migan::fused_up_block", mutates_args=(),
+                         device_types="cuda")
+def fused_up_block_op(x_lo: torch.Tensor, skip: torch.Tensor,
+                      noise_up: torch.Tensor, w_dw: torch.Tensor,
+                      b_dw: torch.Tensor, w_pw: torch.Tensor,
+                      noise2: Optional[torch.Tensor],
+                      w_rgb: Optional[torch.Tensor],
+                      b_rgb: Optional[torch.Tensor], emit_features: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _pair(x_lo, *_launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
+                                noise2, w_rgb, b_rgb, emit_features))
+
+
+@fused_up_block_op.register_kernel("cpu")
+def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+      emit_features):
+    feat, rgb = _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
+                       w_rgb, b_rgb)
+    return _pair(x_lo, feat if emit_features else None, rgb)
+
+
+@fused_up_block_op.register_fake
+def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+      emit_features):
+    n, hl, wl, _ = x_lo.shape
+    hw = (2 * hl, 2 * wl)
+    return _pair(x_lo,
+                 x_lo.new_empty((n, *hw, w_pw.shape[-1]))
+                 if emit_features else None,
+                 x_lo.new_empty((n, *hw, 3)) if w_rgb is not None else None)
+
+
+def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
+                   noise_up: torch.Tensor, w_dw: torch.Tensor,
+                   b_dw: torch.Tensor, w_pw: torch.Tensor,
+                   noise2: Optional[torch.Tensor] = None,
+                   w_rgb: Optional[torch.Tensor] = None,
+                   b_rgb: Optional[torch.Tensor] = None,
+                   emit_features: bool = True):
+    """Fused up2 + noise + act + skip + dw3x3/pw1x1 (+noise2) + act
+    (+ torgb).
+
+    x_lo: [N, Hl, Wl, C]; skip: [N, 2Hl, 2Wl, C]; noise_up, noise2:
+    [2Hl, 2Wl] pre-scaled noise; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
+    w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue. All contiguous and
+    of one dtype; C and O multiples of 8 on CUDA.
+
+    Returns the features [N, 2Hl, 2Wl, O]; with w_rgb the tuple
+    (features, rgb [N, 2Hl, 2Wl, 3]), or only rgb when emit_features is
+    False (the top level, where nothing else reads the features). CPU
+    tensors take the plain version.
+    """
+    if (w_rgb is None) != (b_rgb is None):
+        raise ValueError("fused_up_block: pass both w_rgb and b_rgb")
+    if w_rgb is None and not emit_features:
+        raise ValueError("fused_up_block: no output requested")
+    _build.check_device("fused_up_block", x_lo)
+    feat, rgb = fused_up_block_op(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
+                                  noise2, w_rgb, b_rgb, emit_features)
+    return _outputs(feat, None if w_rgb is None else rgb, emit_features)

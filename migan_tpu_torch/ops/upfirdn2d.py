@@ -22,12 +22,14 @@ def _depthwise(y: torch.Tensor, f: torch.Tensor, stride) -> torch.Tensor:
 
 
 def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up=1, down=1,
-              padding=0, gain: float = 1.0) -> torch.Tensor:
+              padding=0, gain: float = 1.0,
+              flip_filter: bool = False) -> torch.Tensor:
     """Pad, upsample, filter and downsample a batch of NHWC images.
 
     f: prepared FIR filter [fh, fw] or separable [taps] (see
     :func:`filters.setup_filter`), or None for identity. padding is
     (x0, x1, y0, y1) in upsampled space; negative values crop.
+    flip_filter: False convolves with f, True correlates.
     Returns contiguous [N, outH, outW, C] with
     outH = (H*upy + pady0 + pady1 - fh) // downy + 1 (likewise W).
     """
@@ -49,9 +51,9 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up=1, down=1,
     y = y[:, :, max(-py0, 0):y.shape[2] - max(-py1, 0),
           max(-px0, 0):y.shape[3] - max(-px1, 0)]
 
-    # flipped: F.conv2d correlates, upfirdn2d convolves
-    f = (f.to(device=x.device, dtype=x.dtype) * (gain ** (f.ndim / 2))
-         ).flip(list(range(f.ndim)))
+    f = f.to(device=x.device, dtype=x.dtype) * (gain ** (f.ndim / 2))
+    if not flip_filter:          # F.conv2d correlates
+        f = f.flip(list(range(f.ndim)))
     if f.ndim == 2:
         y = _depthwise(y, f, (downy, downx))
     else:                          # separable: x pass, then y pass

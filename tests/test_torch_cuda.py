@@ -439,3 +439,65 @@ def test_evaluate_on_card_matches_cpu(dev, tmp_path):
         rel = (np.linalg.norm(card[k] - cpu[k], axis=1)
                / np.linalg.norm(cpu[k], axis=1))
         assert rel.max() <= 1e-3, (k, rel)
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops, and torch.export on the card
+# ---------------------------------------------------------------------------
+
+# one migan-512 shape per kernel: (kernel, H, W, C, O), H and W the input's
+OP_SHAPES = [("sepconv", 512, 512, 64, 64), ("downblock", 32, 32, 512, 512),
+             ("upblock", 32, 32, 512, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", OP_SHAPES, ids=lambda s: s[0])
+def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
+    """`torch.ops.migan.*` dispatches to the same ctypes launch as before
+    it was an op: bit for bit, one count per call."""
+    kernel, h, w, c, o = shape
+    rng = np.random.RandomState(h + c)
+    if kernel == "upblock":
+        args = [*_on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype), True]
+        op = torch.ops.migan.fused_up_block
+    else:
+        args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
+        if kernel == "sepconv":
+            args += [None, True]
+        op = {"sepconv": torch.ops.migan.fused_block,
+              "downblock": torch.ops.migan.fused_down_block}[kernel]
+    mod = {"sepconv": sepconv, "downblock": downblock,
+           "upblock": upblock}[kernel]
+    before = mod.COUNTER.count
+    via_op = op(*args)
+    torch.cuda.synchronize()
+    assert mod.COUNTER.count == before + 1
+    direct = mod._launch(*args)
+    if kernel != "upblock":
+        via_op, direct = (via_op,), (direct,)
+    for a, b in zip(via_op, direct):
+        assert torch.equal(a, b)
+
+
+def test_exported_chain_runs_the_kernels_on_card(dev, tmp_path):
+    """A `.pt2` of a migan-64 kernel chain, exported and loaded on the
+    card: the loaded program launches the chain's kernels (3 sepconv, 2
+    downblock, 2 upblock per forward) and equals the live chain
+    exactly."""
+    from migan_tpu_torch.cli.demo import load_model
+    from migan_tpu_torch.export import torch_export
+    from migan_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    forward, res = load_model("migan-64", _weights(tmp_path, 64),
+                              device="cuda")
+    rng = np.random.RandomState(64)
+    x = torch.from_numpy(rng.randn(1, 64, 64, 4).astype(np.float32)).cuda()
+    torch_export.save(str(tmp_path / "m.pt2"), forward, [x])
+    loaded = torch_export.load(str(tmp_path / "m.pt2"))
+    want = forward(x)
+    reset_launch_counts()
+    got = loaded(x)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"sepconv": 3, "downblock": 2, "upblock": 2}
+    assert torch.equal(got, want)

@@ -2,9 +2,11 @@
 fresh interpreter imports every module of the package, runs a tiny forward
 through the kernel chain, the demo's file readers and writer on a PNG, the
 app pipeline, a served request in each of the server's modes and the
-evaluation CLI, and finds neither in sys.modules. `chip_smoke.py` names
-neither in any of its imports, and imports the demo, serve and evaluate
-entry points."""
+evaluation CLI, the export CLI (training weights folded, the kernel
+chain exported) and the create_pipeline CLI (a bucket and the dynamic
+program), and finds neither in sys.modules. `chip_smoke.py` names neither
+in any of its imports, and imports the demo, serve, evaluate, export and
+create_pipeline entry points."""
 
 import ast
 import os
@@ -81,10 +83,36 @@ with tempfile.TemporaryDirectory() as d:
     assert lp(imgs01, imgs01).shape == (1,)
     assert np.isfinite(fid_from_feature_arrays(rng.randn(8, 4),
                                                rng.randn(8, 4)))
+
+    # the export and create_pipeline CLIs
+    from migan_tpu_torch.cli import create_pipeline, export
+    from migan_tpu_torch.io import save_train_npz
+    from migan_tpu_torch.models import migan
+    tg = migan.generator_init(migan.MiganConfig(resolution=32,
+                                                num_reparam_tensors=2),
+                              torch.Generator().manual_seed(2))
+    save_train_npz(f"{d}/t.npz", tg)
+    import os
+    os.makedirs(f"{d}/ci")
+    os.makedirs(f"{d}/cm")
+    Image.fromarray(im[0]).save(f"{d}/ci/a.png")
+    Image.fromarray(mk[0, :, :, 0]).save(f"{d}/cm/a.png")
+    stats = export.main(["--model-path", f"{d}/t.npz", "--resolution", "32",
+                       "--num-reparam-tensors", "2", "--origs-dir",
+                       f"{d}/ci", "--masks-dir", f"{d}/cm", "--output-dir",
+                       f"{d}/ex",
+                       "--num-samples", "1", "--device", "cpu"])
+    assert stats["diff_pct"] < 0.5
+    written = create_pipeline.main([
+        "--resolution", "32", "--model-path", f"{d}/ex/models/migan.npz",
+        "--images-dir", f"{d}/ci", "--masks-dir", f"{d}/cm",
+        "--output-dir", f"{d}/cp",
+        "--device", "cpu", "--buckets", "64", "--polymorphic"])
+    assert set(written) == {"64", "dynamic"}
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 34 else 0)
+sys.exit(1 if bad or len(names) < 41 else 0)
 """
 
 
@@ -108,7 +136,7 @@ def test_chip_smoke_imports_neither_jax_nor_migan_tpu():
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module)
             mods.update(f"{node.module}.{a.name}" for a in node.names)
-    for entry in ("demo", "serve", "evaluate"):
+    for entry in ("demo", "serve", "evaluate", "export", "create_pipeline"):
         assert f"migan_tpu_torch.cli.{entry}" in mods
     assert not [m for m in mods
                 if m.split(".")[0] in ("jax", "jaxlib", "migan_tpu")]

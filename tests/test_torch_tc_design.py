@@ -194,7 +194,7 @@ def test_tf32_rounding_model():
 
 def test_kernel_weights_round_trip_to_the_jax_layout(tmp_path):
     """The kernels take the JAX package's layout, made once by
-    `SepWeights.of`: w_dw [3, 3, C] (HWIO without I), b_dw [C], w_pw
+    `SepWeights`: w_dw [3, 3, C] (HWIO without I), b_dw [C], w_pw
     [C, O] (HWIO without H, W), contiguous and 16-byte aligned (the
     kernels copy w_pw as 16-byte vectors). They equal the arrays of the
     `.npz` the JAX package reads."""
@@ -204,10 +204,12 @@ def test_kernel_weights_round_trip_to_the_jax_layout(tmp_path):
     chain = KernelGenerator(g)
     npz = np.load(path)
     checked = 0
-    for part, levels in (("encoder", chain.enc), ("synthesis", chain.syn)):
-        for r, ws in levels.items():
-            for name, w in zip(("conv1", "conv2"), ws[:2]):
-                key = f"{part}/b{r}/{name}"
+    for part, levels in (("encoder", chain.enc_levels),
+                         ("synthesis", chain.syn_levels)):
+        for level, ws in levels.items():
+            for name in ("conv1", "conv2"):
+                w = getattr(ws, name)
+                key = f"{part}/{level}/{name}"
                 dw = npz[f"{key}/conv1/weight"]      # [3, 3, 1, C]
                 pw = npz[f"{key}/conv2/weight"]      # [1, 1, C, O]
                 np.testing.assert_array_equal(w.w_dw.detach().numpy(),
