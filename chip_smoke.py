@@ -12,7 +12,9 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      launches it at, at N = 1 and N = 8 in both dtypes, holding each
      result against the plain one, and prints each shape's bound: the
      larger of its bytes (inputs read once, outputs written once) over
-     3.35 TB/s and its pointwise product over the tensor cores' peak;
+     3.35 TB/s and its pointwise product over the tensor cores' peak; at
+     N = 1 in float32 it holds each kernel's max and mean distance from
+     its plain version in float64 within 3x the plain float32 version's;
   2. writes seeded random migan-512 / migan-256 weights (non-zero noise
      strengths) with `save_npz`, loads them through the demo's
      `load_model`, runs the kernel chain at N = 1 and N = 8 (migan-256 at
@@ -34,19 +36,19 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      padding, pixels outside the box unchanged); then puts each mode under
      sustained load from `python -m migan_tpu_torch.cli.loadgen` in a
      process of its own (16 and 8 clients in a closed loop, 32 replies of
-     warm-up, 3 windows of 128 and 100 replies) and prints each window's
+     warm-up, a window of 128 and of 100 replies) and prints each window's
      requests/s and p50/p99 latency, and in resize mode the most of the
      time the device can have been busy (the forwards' host-clock time
      per request against the windows'); checks for every run that the
      clients were batched and that the kernels launched 19 times per
      dispatch; times one request's stages in order on one thread;
   6. runs the evaluation CLI (`migan_tpu_torch.cli.evaluate.main`,
-     `--device cuda`) on 392 seeded 512² PNGs with on-the-fly masks and
+     `--device cuda`) on 136 seeded 512² PNGs with on-the-fly masks and
      seeded detector .pth files, holds its per-image LPIPS and Inception
      activations against the same CLI on the CPU (first 4 items, the
      plain versions), runs it again with bfloat16 detectors and holds
      that within the bf16 bound; prints img/s and the share of the loop
-     spent waiting for the loader in 3 windows of 128 images for both
+     spent waiting for the loader in a window of 128 images for both
      dtypes, and one batch's device work timed alone beside the loop's
      time per batch;
   7. exports: seeded migan-512 training weights (depthwise, 9 re-param
@@ -63,7 +65,20 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      and dynamic H, W) and each loaded program on seeded images up to
      1024x768 within 1 uint8 of the live `make_pipeline` at the same
      bucket padding, pixels outside the box unchanged, 19 launches per
-     call; prints both CLIs' wall times.
+     call; prints both CLIs' wall times; the fold statistic through the
+     kernel chain is held below 0.5% too;
+  8. trains: the training CLI (`migan_tpu_torch.cli.train --experiment
+     migan_places256`, full width, batch 32, a seeded full-width
+     Co-Mod-GAN-256 teacher, R1 at steps 0 and 16, `--max-steps 20`, a
+     checkpoint every 2 ticks of 4 steps) in a process of its own with
+     deterministic algorithms; a second run SIGKILLed after its first
+     checkpoint and resumed to step 20, its final state held bit-equal to
+     the first run's; one step at batch 2 on the card against the CPU
+     from the same state and noise; each phase's device ms with default
+     and with deterministic algorithms, the peak memory of a batch-32
+     step, and the device's busy share in one deterministic step under
+     torch.profiler; the export CLI on the checkpoint's
+     `params_G_ema`. Prints s/kimg from the tick lines.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -84,6 +99,7 @@ import statistics
 import sys
 import tempfile
 import time
+from dataclasses import dataclass, field
 
 import torch
 
@@ -132,6 +148,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # float32 as the kernels run it: three TF32 products at the TF32 peak.
 HBM_BYTES_PER_S = 3.35e12
 PRODUCT_FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+# float32: each kernel's max and mean distance from its plain version in
+# float64 may be at most this many times the plain float32 version's
+F64_ERR_FACTOR = 3.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -262,10 +281,14 @@ def phase_kernels(results: dict) -> None:
             if dtype == torch.float32:
                 results[name]["max_abs_err"] = max(
                     results[name]["max_abs_err"], err)
-    # times at every main-path shape, N = 1 and 8, both dtypes
+    # times at every main-path shape, N = 1 and 8, both dtypes; at N = 1
+    # in float32 each kernel's and the plain float32 version's distance
+    # from the plain version in float64
     for dtype in (torch.float32, torch.bfloat16):
         for n in (1, 8):
-            for name, label, fk, fp, args, flops in timed_cases(n, dtype):
+            for case in main_path_cases(n, dtype):
+                name, label = case.name, case.label
+                fk, fp = case.kernel, case.plain
                 ms, plain_ms = cuda_ms(fk), cuda_ms(fp)
                 got, want = fk(), fp()
                 torch.cuda.synchronize()
@@ -273,7 +296,8 @@ def phase_kernels(results: dict) -> None:
                 wants = want if isinstance(want, tuple) else (want,)
                 err = max(max_err(a, b, dtype, f"{name} {label}")
                           for a, b in zip(outs, wants))
-                bound_ms, bound_by = bound(args, outs, flops, dtype)
+                bound_ms, bound_by = bound(case.args, outs, case.flops,
+                                           dtype)
                 dt = str(dtype)[6:]
                 print(f"phase1 time {name} {label} {dt}: kernel {ms:.4f} "
                       f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
@@ -283,6 +307,8 @@ def phase_kernels(results: dict) -> None:
                 row = {"shape": label, "dtype": dt, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "max_abs_err": err}
+                if dtype == torch.float32 and n == 1:
+                    row.update(float64_check(case))
                 results[name]["shapes"].append(row)
                 if dtype == torch.float32:
                     results[name]["max_abs_err"] = max(
@@ -295,14 +321,43 @@ def phase_kernels(results: dict) -> None:
                             results[name][k] = row[k]
 
 
-def timed_cases(n: int, dtype):
-    """(kernel, label, kernel call, plain call, input tensors, flops of the
-    pointwise product) at every shape of a migan-512 forward, in call
-    order; upblock as the forward calls it (rgb only at the top level).
-    Inputs are made on the card."""
+@dataclass
+class Case:
+    """One kernel call of a migan-512 forward: `args` the wrapper's
+    positional tensors, `kw` its flags, `flops` the pointwise product's."""
+
+    name: str
+    label: str
+    args: tuple
+    flops: int
+    kw: dict = field(default_factory=dict)
+
+    def kernel(self):
+        from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
+
+        fn = {"sepconv": sepconv.fused_block,
+              "downblock": downblock.fused_down_block,
+              "upblock": upblock.fused_up_block}[self.name]
+        return fn(*self.args, **self.kw)
+
+    def plain(self, dtype=None):
+        """The plain version, on the inputs cast to `dtype` if given."""
+        from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
+
+        fn = {"sepconv": sepconv.sepconv_plain,
+              "downblock": downblock.downblock_plain,
+              "upblock": upblock.upblock_plain}[self.name]
+        args = self.args if dtype is None else tuple(
+            None if a is None else a.to(dtype) for a in self.args)
+        return fn(*args, **self.kw)
+
+
+def main_path_cases(n: int, dtype) -> list:
+    """A `Case` for each distinct kernel shape of a migan-512 forward at
+    batch n, in call order; upblock as the forward calls it (rgb only at
+    the top level). Seeded inputs made on the card."""
     from migan_tpu_torch.models.migan_inference import GeneratorConfig
     from migan_tpu_torch.models.migan_kernels import kernel_shapes
-    from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
 
     gen = torch.Generator("cuda").manual_seed(SEED + n)
 
@@ -321,32 +376,52 @@ def timed_cases(n: int, dtype):
         sep = (r(3, 3, c, scale=1 / 3), r(c, scale=1 / 3),
                r(c, o, scale=c ** -.5))
         if name == "sepconv":
-            args = (r(n, h, w, c), *sep)
-            cases.append((name, f"[{n},{h},{w},{c}]->{o} final_act={fa}",
-                          lambda a=args, fa=fa: sepconv.fused_block(
-                              *a, final_act=fa),
-                          lambda a=args, fa=fa: sepconv.sepconv_plain(
-                              *a, final_act=fa), args, 2 * n * h * w * c * o))
+            cases.append(Case(name, f"[{n},{h},{w},{c}]->{o} final_act={fa}",
+                              (r(n, h, w, c), *sep), 2 * n * h * w * c * o,
+                              {"final_act": fa}))
         elif name == "downblock":
-            args = (r(n, h, w, c), *sep)
-            cases.append((name, f"[{n},{h},{w},{c}]->{o}",
-                          lambda a=args: downblock.fused_down_block(*a),
-                          lambda a=args: downblock.downblock_plain(*a),
-                          args, 2 * n * (h // 2) * (w // 2) * c * o))
+            cases.append(Case(name, f"[{n},{h},{w},{c}]->{o}",
+                              (r(n, h, w, c), *sep),
+                              2 * n * (h // 2) * (w // 2) * c * o))
         else:
             emit = 2 * h != top
             args = (r(n, h, w, c), r(n, 2 * h, 2 * w, c),
                     r(2 * h, 2 * w, scale=.3), *sep,
                     r(2 * h, 2 * w, scale=.3), r(o, 3, scale=o ** -.5),
                     r(3, scale=.1))
-            cases.append((name, f"x_lo [{n},{h},{w},{c}]->{o} "
-                          f"{'feat+rgb' if emit else 'rgb only'}",
-                          lambda a=args, e=emit: upblock.fused_up_block(
-                              *a, emit_features=e),
-                          lambda a=args, e=emit: upblock.upblock_plain(
-                              *a, emit_features=e),
-                          args, 2 * n * 4 * h * w * c * o))
+            cases.append(Case(name, f"x_lo [{n},{h},{w},{c}]->{o} "
+                              f"{'feat+rgb' if emit else 'rgb only'}",
+                              args, 2 * n * 4 * h * w * c * o,
+                              {"emit_features": emit}))
     return cases
+
+
+def _errors(got, truth) -> dict:
+    """max and mean |got - truth| over every output element."""
+    def flat(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        return torch.cat([t.double().flatten() for t in outs])
+
+    d = (flat(got) - flat(truth)).abs()
+    return {"max": d.max().item(), "mean": d.mean().item()}
+
+
+def float64_check(case: Case) -> dict:
+    """The kernel's and the plain float32 version's max and mean distance
+    from the plain version in float64; fails when the kernel's is beyond
+    F64_ERR_FACTOR times the plain version's."""
+    truth = case.plain(torch.float64)
+    k, p = _errors(case.kernel(), truth), _errors(case.plain(), truth)
+    ratio = {s: k[s] / p[s] for s in ("max", "mean")}
+    print(f"phase1 float64 {case.name} {case.label}: kernel max "
+          f"{k['max']:.3e} mean {k['mean']:.3e}, plain float32 max "
+          f"{p['max']:.3e} mean {p['mean']:.3e}, ratio "
+          f"{ratio['max']:.2f}x / {ratio['mean']:.2f}x", flush=True)
+    for s in ("max", "mean"):
+        check(k[s] <= F64_ERR_FACTOR * p[s], f"{case.name} {case.label}: "
+              f"{s} error against float64 {k[s]:.3e}, beyond "
+              f"{F64_ERR_FACTOR}x the plain float32 version's {p[s]:.3e}")
+    return {"f32_err_vs_f64": k, "plain_f32_err_vs_f64": p}
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +621,7 @@ PIPELINE_SIZES = ((512, 512), (1024, 768), (640, 480), (300, 700),
 # Sustained load (`migan_tpu_torch.cli.loadgen`, a process of its own):
 # clients in a closed loop, LOAD_WARMUP replies unmeasured, then
 # LOAD_REPEATS windows of at least 100 replies each (a p99 needs 100).
-LOAD_WARMUP, LOAD_REPEATS = 32, 3
+LOAD_WARMUP, LOAD_REPEATS = 32, 1
 LOAD = {"serve resize": (16, 128), "serve pipeline": (8, 100)}
 
 
@@ -834,7 +909,7 @@ def phase_serve(forward, tmp: str, gpu: str, results: dict) -> None:
 
 # The evaluation's measured windows: EVAL_REPEATS windows of EVAL_WINDOW
 # images each, after the first batch (the loader's start-up).
-EVAL_BATCH, EVAL_WINDOW, EVAL_REPEATS = 8, 128, 3
+EVAL_BATCH, EVAL_WINDOW, EVAL_REPEATS = 8, 128, 1
 
 
 def _eval_windows(batches) -> list:
@@ -1165,6 +1240,9 @@ def phase_export(tmp: str, gpu: str, results: dict) -> None:
     pct = stats["diff_pct"]
     check(pct < FOLD_DIFF_LIMIT, f"export: fold diff {pct}% beyond "
           f"{FOLD_DIFF_LIMIT}%")
+    check(stats["chain_diff_pct"] < FOLD_DIFF_LIMIT, f"export: fold diff "
+          f"through the kernel chain {stats['chain_diff_pct']}% beyond "
+          f"{FOLD_DIFF_LIMIT}%")
     check(stats["chain_max_abs_diff"] <= GEN_ATOL, f"export: the kernel "
           f"chain {stats['chain_max_abs_diff']} from the plain folded net")
     pt2 = os.path.join(out, "models", "migan.pt2")
@@ -1280,10 +1358,439 @@ def phase_export(tmp: str, gpu: str, results: dict) -> None:
           f"the box unchanged, {per(1)} launches per call", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20          # R1 runs at steps 0 and 16 (d_reg_interval 16)
+TRAIN_BATCH = 32          # the config's own
+TICK_STEPS = 4            # a tick of 4 steps, a checkpoint every 2 ticks
+CKPT_TICKS = 2
+# one step at batch 2 on the card against the CPU (TF32 off): the losses
+# and each phase's gradient (all its parameters' gradients as one vector,
+# relative L2), float32 sums in another order through ~60 layers (G, D,
+# the Co-Mod-GAN teacher; the losses read 0 to 5.3e-6 apart, relative, on
+# an H100: PERF.md section 6). Single tensors of R1's gradient (the biases,
+# norms ~1e-7) are further apart, between float32 and float64 on one CPU
+# too (up to 2e-2 at 256 px): printed, not held.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
+STEP_LOSSES = ("Loss/G/loss", "Loss/G/kd_l1_image_level_loss", "Loss/D/loss",
+               "Loss/D/reg", "Loss/r1_penalty")
+PHASE_REPS = 3            # timed steps after 2 warm-up steps
+STEP_WINDOW = "migan_train_step"
+
+# The training CLI in a process of its own, with deterministic algorithms
+# (set here, by the launcher, not by a flag of the CLI), so that a killed
+# and resumed run can be held bit-equal to the uninterrupted one.
+TRAIN_LAUNCHER = r"""
+import sys
+import torch
+torch.use_deterministic_algorithms(True)
+from migan_tpu_torch.cli.train import main
+main(sys.argv[1:])
+"""
+
+
+def _train_argv(teacher: str, log_root: str, signature: str) -> list:
+    return ["--experiment", "migan_places256", "--signature", signature,
+            "--max-steps", str(TRAIN_STEPS),
+            "--set", "train.dataset.root_dir=data/Places2-demo",
+            "--set", f"train.image_level_kd_kwargs.teacher1_path={teacher}",
+            "--set", "train.metrics=[]",
+            "--set", f"env.log_root_dir={log_root}",
+            "--set", f"train.kimg_per_tick="
+                     f"{TICK_STEPS * TRAIN_BATCH / 1000}",
+            "--set", f"train.snapshot.checkpoint={CKPT_TICKS}"]
+
+
+def _train_process(argv: list, out_path: str):
+    import subprocess
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = open(out_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", TRAIN_LAUNCHER, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def _run_dir(log_root: str) -> str:
+    (name,) = os.listdir(log_root)
+    return os.path.join(log_root, name)
+
+
+def _tick_lines(out_path: str) -> list:
+    with open(out_path) as f:
+        return [l.strip() for l in f if l.startswith("tick ")]
+
+
+def _check_train_run(proc, out, out_path: str, what: str) -> None:
+    rc = proc.wait(timeout=900)
+    out.close()
+    if rc != 0:
+        with open(out_path) as f:
+            log = f.read()
+        raise RuntimeError(f"phase8 {what}: exit {rc}\n{log[-4000:]}")
+
+
+def _state_equal(a: dict, b: dict, path: str = "") -> list:
+    """Paths where two checkpoint state dicts differ (tensors bit for
+    bit, everything else by ==)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [path + " (keys)"]
+        return [d for k in a for d in _state_equal(a[k], b[k],
+                                                   f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path + " (length)"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _state_equal(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _train_setup(device, teacher_path: str, batch: int):
+    """(TrainStep, TrainState, batch dict, teacher fn) of migan_places256
+    at full width on `device`, G and D from the seed, the teacher from
+    `teacher_path`, a batch of the demo images with their masks."""
+    from migan_tpu_torch.data.factory import get_dataset
+    from migan_tpu_torch.data.sampler import DataLoader
+    from migan_tpu_torch.models.registry import get_model
+    from migan_tpu_torch.train import loop, train_step
+    from migan_tpu_torch.utils.config import ConfigBanks, apply_overrides
+
+    cfg = ConfigBanks("configs").experiment("migan_places256")
+    apply_overrides(cfg, ["train.dataset.root_dir=data/Places2-demo",
+                          "train.image_level_kd_kwargs.teacher1_path="
+                          + teacher_path, f"train.batch_size={batch}"])
+    cfgt = cfg["train"]
+    g_cfg = get_model()(cfg["model_g"]).cfg
+    d_cfg = get_model()(cfg["model_d"]).cfg
+    tcfg = loop._train_config_from_cfg(cfgt)
+    teacher = loop._make_teacher(cfgt, device)
+    state = train_step.init_train_state(torch.Generator().manual_seed(SEED),
+                                        g_cfg, d_cfg, tcfg, device)
+    step = train_step.make_train_step(g_cfg, d_cfg, tcfg, teacher=teacher)
+    x, mask, _ = next(iter(DataLoader(get_dataset(cfgt["dataset"]), batch,
+                                      num_workers=4, seed=SEED)))
+    data = {"real": torch.from_numpy(x).to(device),
+            "mask": torch.from_numpy(mask[..., None]).to(device)}
+    return step, state, data
+
+
+def _card_vs_cpu_step(teacher_path: str, gpu: str) -> None:
+    """One step (Gmain with the teacher, Dmain, Dreg) at batch 2 on the
+    card and on the CPU, each phase from the same state and the same
+    noise (CPU generators: `migan.randn` draws on the generator's
+    device). After each phase the card's state is set to the CPU's: with
+    beta1 = 0 the first Adam update is ~lr sign(g), which flips where a
+    gradient is within rounding of 0, and would start the next phase from
+    states 2 lr apart there."""
+    from migan_tpu_torch.train import train_step
+    from migan_tpu_torch.train.train_step import decode_batch
+
+    runs = {dev: _train_setup(torch.device(dev), teacher_path, 2)
+            for dev in ("cpu", "cuda")}
+    gens = {dev: torch.Generator().manual_seed(SEED + 20) for dev in runs}
+    out = {dev: ({}, []) for dev in runs}
+    orig = train_step._apply
+    for phase in ("g", "d", "r1"):
+        for dev, (step, state, data) in runs.items():
+            real, mask = decode_batch(data["real"], data["mask"])
+            grads = out[dev][1]
+
+            def spy(opt, params, g, grads=grads):
+                grads.append([t.detach().cpu() for t in g])
+                orig(opt, params, g)
+
+            train_step._apply = spy
+            try:
+                if phase == "r1":
+                    stats = step.r1_phase(state, real, mask)
+                else:
+                    stats = getattr(step, f"{phase}_phase")(
+                        state, real, mask, gens[dev])
+            finally:
+                train_step._apply = orig
+            out[dev][0].update({k: float(v) for k, v in stats.items()})
+        runs["cuda"][1].load_state_dict(runs["cpu"][1].state_dict())
+    del runs
+    runs = out
+    (s_cpu, g_cpu), (s_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    rel = {k: abs(s_gpu[k] - s_cpu[k]) / max(abs(s_cpu[k]), 1e-30)
+           for k in STEP_LOSSES}
+    for k in STEP_LOSSES:
+        check(rel[k] <= STEP_LOSS_RTOL, f"phase8 card vs CPU: {k} {s_gpu[k]} "
+              f"against {s_cpu[k]} (rtol {STEP_LOSS_RTOL})")
+    whole, worst = {}, {}
+    for phase, a, b in zip(("Gmain", "Dmain", "Dreg"), g_gpu, g_cpu):
+        whole[phase] = _rel_l2(torch.cat([x.flatten() for x in a]),
+                               torch.cat([y.flatten() for y in b]))
+        worst[phase] = max(_rel_l2(x, y) for x, y in zip(a, b))
+        check(whole[phase] <= STEP_GRAD_RTOL, f"phase8 card vs CPU: "
+              f"{phase} gradient relative L2 {whole[phase]:.3e}, limit "
+              f"{STEP_GRAD_RTOL}")
+    print(f"phase8 one step at batch 2, card vs CPU (TF32 off, same state "
+          f"and noise): losses relative "
+          + ", ".join(f"{k.split('/', 1)[1]} {v:.2e}" for k, v in rel.items())
+          + f" (rtol {STEP_LOSS_RTOL}); gradient "
+          f"relative L2 per phase "
+          + ", ".join(f"{k} {v:.3e}" for k, v in whole.items())
+          + f" (limit {STEP_GRAD_RTOL}), its worst single tensor "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" ({gpu})", flush=True)
+
+
+def _phase_times(teacher_path: str, gpu: str) -> None:
+    """Median device ms of each phase of a batch-32 step by CUDA events
+    after 2 warm-up steps, the teacher's forward alone, and the peak
+    device memory of a step: with PyTorch's default algorithms, then with
+    deterministic algorithms, as the training CLI runs here. Then one
+    deterministic step (Gmain, Dmain, EMA) under torch.profiler: the
+    device's busy share, the union of its device events' intervals over
+    the step's host-clock window (as `cli/trace.py` measures a forward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from migan_tpu_torch.cli.trace import busy_union
+    from migan_tpu_torch.train.train_step import decode_batch
+
+    dev = torch.device("cuda")
+    step, state, data = _train_setup(dev, teacher_path, TRAIN_BATCH)
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    real, mask = decode_batch(data["real"], data["mask"])
+    phases = {
+        "Gmain (with the teacher)": lambda: step.g_phase(state, real, mask,
+                                                         gen),
+        "teacher forward alone": lambda: step.teacher(
+            torch.cat([mask - 0.5, real * mask], dim=-1), gen),
+        "Dmain": lambda: step.d_phase(state, real, mask, gen),
+        "Dreg (R1)": lambda: step.r1_phase(state, real, mask),
+        "EMA": lambda: step.ema_phase(state, state.nimg + TRAIN_BATCH),
+    }
+    try:
+        for det in (False, True):
+            torch.use_deterministic_algorithms(det)
+            for _ in range(2):
+                step(state, data, gen, do_dr1=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = {k: [] for k in phases}
+            for _ in range(PHASE_REPS):
+                for name, fn in phases.items():
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    times[name].append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"phase8 migan_places256 batch 32 step, "
+                  f"{'deterministic' if det else 'default'} algorithms, "
+                  f"median device ms per phase (CUDA events, {PHASE_REPS} "
+                  f"steps after 2 warm-up steps): "
+                  + ", ".join(f"{k} {statistics.median(v):.2f}"
+                              for k, v in times.items())
+                  + f"; peak device memory {peak:.2f} GiB ({gpu})",
+                  flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(STEP_WINDOW):
+                step(state, data, gen, do_dr1=False)
+                torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    events = prof.events()
+    win = next(e for e in events
+               if e.name == STEP_WINDOW and e.device_type == DeviceType.CPU)
+    lo, hi = win.time_range.start, win.time_range.end
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CUDA and e.name != STEP_WINDOW]
+    check(bool(spans), "phase8: the profiler recorded no device events")
+    busy = busy_union(spans, (lo, hi))
+    print(f"phase8 one deterministic step (Gmain, Dmain, EMA) under "
+          f"torch.profiler: device busy {busy / 1e3:.1f} ms of a "
+          f"{(hi - lo) / 1e3:.1f} ms window = {100 * busy / (hi - lo):.1f}% "
+          f"({len(spans)} device events; {gpu})", flush=True)
+    del step, state, data
+    torch.cuda.empty_cache()
+
+
+def phase_train(tmp: str, gpu: str, results: dict) -> None:
+    """`cli.train --experiment migan_places256` (full width, batch 32,
+    the seeded full-width Co-Mod-GAN-256 teacher, R1) for 20 steps; a run
+    SIGKILLed after its first checkpoint and resumed, held bit-equal to
+    the uninterrupted one; one step on the card against the CPU; the
+    phases' device times; the export CLI on the checkpoint."""
+    import glob
+    import signal
+
+    import numpy as np
+
+    from migan_tpu_torch.cli import export
+    from migan_tpu_torch.io import save_train_npz
+    from migan_tpu_torch.models import comodgan
+    from migan_tpu_torch.models.registry import get_model
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from migan_tpu_torch.train import checkpoint as ckpt
+    from migan_tpu_torch.train import loop
+    from migan_tpu_torch.train.train_step import init_train_state
+    from migan_tpu_torch.utils.config import ConfigBanks
+
+    # the training runs are processes of their own and need most of the
+    # card: give back what the earlier phases cached
+    torch.cuda.empty_cache()
+    # a seeded full-width Co-Mod-GAN-256 teacher, non-zero noise strengths
+    t0 = time.perf_counter()
+    teacher = comodgan.generator_init(comodgan.CoModGANConfig(resolution=256),
+                                      torch.Generator().manual_seed(SEED + 9))
+    with torch.no_grad():
+        for name, p in teacher.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.1)
+    n_teacher = sum(p.numel() for p in teacher.parameters())
+    check(n_teacher == 79_177_378, f"teacher: {n_teacher:,} parameters")
+    teacher_path = os.path.join(tmp, "comodgan_256_seeded.npz")
+    save_train_npz(teacher_path, teacher)
+    del teacher
+    print(f"phase8 seeded Co-Mod-GAN-256 teacher: {n_teacher:,} parameters, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 1. the uninterrupted run
+    root_a = os.path.join(tmp, "train_a")
+    out_a = os.path.join(tmp, "train_a.log")
+    t0 = time.perf_counter()
+    proc, out = _train_process(_train_argv(teacher_path, root_a, "a"), out_a)
+    _check_train_run(proc, out, out_a, "uninterrupted run")
+    wall_a = time.perf_counter() - t0
+    run_a = _run_dir(root_a)
+    ticks = _tick_lines(out_a)
+    for line in ticks:
+        print(f"phase8 run a: {line}", flush=True)
+    check(len(ticks) == TRAIN_STEPS // TICK_STEPS, f"phase8: {len(ticks)} "
+          f"ticks")
+    spk = [float(l.split("sec_per_kimg ")[1].split()[0]) for l in ticks]
+    print(f"phase8 s/kimg from the tick lines: tick 0 (start-up included) "
+          f"{spk[0]}, ticks 1-{len(spk) - 1} median "
+          f"{statistics.median(spk[1:])} ({', '.join(map(str, spk[1:]))}); "
+          f"{TRAIN_STEPS} steps in {wall_a:.1f} s wall, process start to "
+          f"exit ({gpu})", flush=True)
+    with open(os.path.join(run_a, "stats.jsonl")) as f:
+        rows = [json.loads(l) for l in f]
+    losses = {k: v["mean"] for r in rows for k, v in r.items()
+              if k.startswith("Loss/")}
+    check(all(np.isfinite(v) for v in losses.values()) and
+          "Loss/r1_penalty" in losses and
+          "Loss/G/kd_l1_image_level_loss" in losses,
+          f"phase8: losses {losses}")
+    final_a = ckpt.latest(os.path.join(run_a, "weight"))
+    check(final_a.endswith(f"step_{TRAIN_STEPS:08d}"), f"phase8: {final_a}")
+    state_a = ckpt.load(final_a)
+    check(state_a["step"] == TRAIN_STEPS
+          and state_a["nimg"] == TRAIN_STEPS * TRAIN_BATCH,
+          f"phase8: step {state_a['step']} nimg {state_a['nimg']}")
+    cfg = ConfigBanks("configs").experiment("migan_places256")
+    init = init_train_state(torch.Generator().manual_seed(SEED),
+                            get_model()(cfg["model_g"]).cfg,
+                            get_model()(cfg["model_d"]).cfg,
+                            loop._train_config_from_cfg(cfg["train"])
+                            ).state_dict()
+    moved = {k: bool(_state_equal(init[k], state_a[k]))
+             for k in ("params_G", "params_D", "params_G_ema")}
+    check(all(moved.values()), f"phase8: moved {moved}")
+    print(f"phase8 run a: every loss finite over {TRAIN_STEPS} steps "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+          + f" (last tick's means); G, D and the EMA moved from their "
+          f"initial values; G {_numel(state_a['params_G']):,} elements, "
+          f"D {_numel(state_a['params_D']):,}", flush=True)
+
+    # 2. killed after its first committed checkpoint, then resumed
+    root_b = os.path.join(tmp, "train_b")
+    out_b = os.path.join(tmp, "train_b.log")
+    proc, out = _train_process(_train_argv(teacher_path, root_b, "b"), out_b)
+    killed_at = None
+    deadline = time.time() + 900
+    while proc.poll() is None and time.time() < deadline:
+        weight = glob.glob(os.path.join(root_b, "*", "weight"))
+        if weight and ckpt.latest(weight[0]):
+            proc.send_signal(signal.SIGKILL)
+            killed_at = sorted(os.listdir(weight[0]))
+            break
+        time.sleep(0.05)
+    proc.wait(timeout=60)
+    out.close()
+    check(killed_at is not None, "phase8: run b ended before its first "
+          "checkpoint")
+    run_b = _run_dir(root_b)
+    resumed_from = ckpt.latest(os.path.join(run_b, "weight"))
+    root_c = os.path.join(tmp, "train_c")
+    out_c = os.path.join(tmp, "train_c.log")
+    proc, out = _train_process(
+        _train_argv(teacher_path, root_c, "c")
+        + ["--resume-path", os.path.join(run_b, "weight")], out_c)
+    _check_train_run(proc, out, out_c, "resumed run")
+    final_c = ckpt.latest(os.path.join(_run_dir(root_c), "weight"))
+    diff = _state_equal(state_a, ckpt.load(final_c))
+    check(not diff, f"phase8: the resumed run differs from the "
+          f"uninterrupted one at {diff[:10]}")
+    print(f"phase8 run b SIGKILLed with {killed_at} on disk, resumed from "
+          f"{os.path.basename(resumed_from)} to step {TRAIN_STEPS}: its "
+          f"final state (G, D, EMA, both Adam states, step, nimg) equals "
+          f"the uninterrupted run's bit for bit (deterministic "
+          f"algorithms)", flush=True)
+
+    # 3. one step on the card against the CPU; the phases' times
+    _card_vs_cpu_step(teacher_path, gpu)
+    _phase_times(teacher_path, gpu)
+
+    # 4. the export CLI on the checkpoint's params_G_ema
+    root = os.path.join(tmp, "train_export")
+    _write_pairs(root, ((256, 256), (300, 200)), SEED + 400)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = export.main([
+        "--model-path", os.path.join(run_a, "weight"), "--resolution", "256",
+        "--origs-dir", os.path.join(root, "images"), "--masks-dir",
+        os.path.join(root, "masks"), "--output-dir",
+        os.path.join(root, "out"), "--num-samples", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    record_path(results, "train export", counts)
+    want = {k: 2 * v for k, v in EXPECTED_LAUNCHES[256].items()}
+    check(counts == want, f"phase8 export: launches {counts}, expected "
+          f"{want}")
+    check(stats["diff_pct"] < FOLD_DIFF_LIMIT
+          and stats["chain_diff_pct"] < FOLD_DIFF_LIMIT,
+          f"phase8 export: fold diff {stats}")
+    print(f"phase8 export CLI on {os.path.basename(final_a)}'s "
+          f"params_G_ema: Average diff {stats['diff_pct']:.6f}%, through "
+          f"the kernel chain {stats['chain_diff_pct']:.6f}% (limit "
+          f"{FOLD_DIFF_LIMIT}%), {time.perf_counter() - t0:.2f} s wall, "
+          f"launches {counts}", flush=True)
+
+
+def _numel(state_dict: dict) -> int:
+    return sum(v.numel() for v in state_dict.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # cuBLAS's deterministic workspace, read at its first use: phase 8
+    # times a training step with deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from migan_tpu_torch.cli.trace import card
     from migan_tpu_torch.ops.kernels import _build
 
@@ -1301,14 +1808,29 @@ def main() -> int:
                    "replaces": rep, "launches": 0, "max_abs_err": 0.0,
                    "library_ms": None, "shapes": []}
                for k, (src, rep) in SOURCES.items()}
+    t0 = time.perf_counter()
+
+    def took(phase: int) -> None:
+        print(f"phase{phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     phase_kernels(results)
+    took(1)
     with tempfile.TemporaryDirectory() as tmp:
         forwards = phase_generator(tmp, results)
+        took(2)
         phase_demo(tmp, results)
+        took(3)
         phase_times(forwards, gpu)
+        took(4)
         phase_serve(forwards[512, "float32"][0], tmp, gpu, results)
+        took(5)
         phase_evaluate(tmp, gpu, results)
+        took(6)
         phase_export(tmp, gpu, results)
+        took(7)
+        phase_train(tmp, gpu, results)
+        took(8)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

@@ -6,8 +6,11 @@ reference scripts/demo.py).
         --output-dir out/ --device cuda
 
 Takes the JAX package's `.npz` weights or a reference `.pt` state_dict.
-The generator runs through the kernel chain (`models/migan_kernels.py`);
-on `--device cpu` the chain's fused ops take their plain versions.
+The MI-GAN generator runs through the kernel chain
+(`models/migan_kernels.py`); on `--device cpu` the chain's fused ops take
+their plain versions. `comodgan-256/512` (the distillation teacher) runs
+on plain ops, as in the JAX package, with its `--ch-base`, `--ch-max`,
+`--z-npy` and `--noise-mode`.
 Pre/post-processing is the port's `data/preprocess.py` (numpy and PIL),
 imported where files are read.
 """
@@ -31,7 +34,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model-name", required=True,
-                   help="migan-<resolution>, e.g. migan-256 or migan-512")
+                   help="migan-<resolution>, e.g. migan-256 or migan-512, "
+                   "or comodgan-<resolution>")
     p.add_argument("--model-path", required=True,
                    help="Weights (.npz of migan_tpu or .pt state_dict).")
     p.add_argument("--images-dir", type=Path, required=True)
@@ -43,6 +47,20 @@ def get_args(argv=None):
                    help="torch device; 'cuda' raises when no card is "
                    "present.")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
+    p.add_argument("--ch-base", type=int, default=None,
+                   help="Channel bank base for comodgan-* (reference "
+                   "comodgan.py Encoder/Synthesis ch_base; default 32768).")
+    p.add_argument("--ch-max", type=int, default=None,
+                   help="Channel cap for comodgan-* (default 512).")
+    p.add_argument("--z-npy", type=str, default=None,
+                   help="comodgan-*: .npy with a fixed z [512] (or [1,512]) "
+                   "used for every image instead of per-call sampling, "
+                   "which makes runs reproducible and comparable across "
+                   "frameworks (reference comodgan.py:438-445).")
+    p.add_argument("--noise-mode", choices=["random", "const", "none"],
+                   default="random",
+                   help="comodgan-*: synthesis noise mode; 'const' replays "
+                   "the loaded noise_const buffers.")
     p.add_argument("--batch-size", type=int, default=1,
                    help="Images per forward. 1 replays the reference demo "
                    "loop; >1 overlaps host decode/encode (thread pool) "
@@ -54,15 +72,21 @@ def get_args(argv=None):
 
 
 def load_model(model_name: str, model_path: str, dtype: str = "float32",
-               device: str = "cuda"):
+               device: str = "cuda", ch_base=None, ch_max=None,
+               z_npy=None, noise_mode: str = "random"):
     """Returns (forward, resolution). forward: [N,H,W,4] array or tensor
-    -> float32 [N,H,W,3] tensor on `device`."""
+    -> float32 [N,H,W,3] tensor on `device`.
+
+    migan-<res>: the deploy generator through the kernel chain.
+    comodgan-<res>: the Co-Mod-GAN generator on plain ops, as in the JAX
+    package (`models.comodgan.load_comodgan_forward`), with ch_base /
+    ch_max, a fixed z from `z_npy` and the noise mode."""
     from ..io import load_weights
     from ..models.migan_inference import GeneratorConfig
     from ..models.migan_kernels import KernelGenerator
 
-    m = re.fullmatch(r"migan-(\d+)", model_name)
-    res = int(m.group(1)) if m else 0
+    m = re.fullmatch(r"(migan|comodgan)-(\d+)", model_name)
+    res = int(m.group(2)) if m else 0
     if res < 16 or res & (res - 1):
         raise ValueError(f"Unsupported model name: {model_name}")
     dev = torch.device(device)
@@ -76,6 +100,23 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
         # bf16 work is not affected by it.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    if m.group(1) == "comodgan":
+        from ..models.comodgan import CoModGANConfig, load_comodgan_forward
+
+        z = None
+        if z_npy is not None:
+            z = np.load(z_npy)
+            z_dim = CoModGANConfig().z_dim
+            if z.size != z_dim:
+                raise SystemExit(
+                    f"--z-npy must hold one latent of {z_dim} values "
+                    f"([{z_dim}] or [1, {z_dim}]); got shape {z.shape}. It "
+                    "is broadcast over the batch; per-image latents are "
+                    "not supported.")
+            z = z.reshape(1, z_dim).astype(np.float32)
+        return load_comodgan_forward(model_name, model_path, dtype,
+                                     ch_base=ch_base, ch_max=ch_max, z=z,
+                                     noise_mode=noise_mode, device=device)
     dt = DTYPES[dtype]
     generator = load_weights(model_path, GeneratorConfig(resolution=res))
     chain = KernelGenerator(generator.to(device=dev, dtype=dt).eval())
@@ -195,7 +236,10 @@ def main(argv=None):
     args = get_args(argv)
     args.output_dir.mkdir(parents=True, exist_ok=True)
     forward, resolution = load_model(args.model_name, args.model_path,
-                                     args.dtype, args.device)
+                                     args.dtype, args.device,
+                                     ch_base=args.ch_base,
+                                     ch_max=args.ch_max, z_npy=args.z_npy,
+                                     noise_mode=args.noise_mode)
     img_paths = _list_images(args.images_dir)
 
     if args.batch_size > 1:

@@ -7,11 +7,13 @@ generator into the deploy net, check the fold, and serialize it.
         --output-dir out/ --device cuda
 
 Inputs (--model-path): the JAX package's training-G `.npz`, a reference
-`.pt` training state_dict, or a reference `network-snapshot-*.pkl`
+`.pt` training state_dict, a reference `network-snapshot-*.pkl`
 (whole-module pickle, loaded without reference code; its `G_ema` is
-folded). A training checkpoint directory is refused: the JAX package's is
-an orbax TrainState, which needs JAX, and the port's own training
-checkpoint does not exist yet (ROADMAP Queue 1 item 11).
+folded), or a training checkpoint directory of the port (`train/
+checkpoint.py`: a `step_*` directory or the `weight/` directory holding
+them, whose newest is taken; its `params_G_ema` is folded). The JAX
+package's checkpoint directory (an orbax TrainState) needs JAX to read
+and is refused, with the reason.
 
 Outputs:
   out/models/migan.npz     folded deploy weights, the JAX package's format
@@ -25,10 +27,7 @@ Outputs:
                            plain forward, as the reference and the JAX
                            package compute it; then the same statistic
                            through the kernel chain and the chain's largest
-                           distance from the plain folded net (float32 on a
-                           card: the kernels' three-TF32 products, not
-                           IEEE sums, so near-zero outputs can fail
-                           rtol 1e-3 there)
+                           distance from the plain folded net
 """
 
 from __future__ import annotations
@@ -45,8 +44,9 @@ import torch
 def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model-path", type=str, required=True,
-                   help="training-G .npz, reference .pt state_dict or "
-                   "reference network-snapshot-*.pkl")
+                   help="training-G .npz, reference .pt state_dict, "
+                   "reference network-snapshot-*.pkl, or a training "
+                   "checkpoint directory of the port")
     p.add_argument("--origs-dir", type=Path, required=True)
     p.add_argument("--masks-dir", type=Path, required=True)
     p.add_argument("--output-dir", type=Path, required=True)
@@ -91,13 +91,6 @@ def main(argv=None) -> dict:
     from ..models.migan_inference import generator_apply as inference_apply
     from ..models.migan_kernels import KernelGenerator
 
-    if os.path.isdir(args.model_path):
-        raise SystemExit(
-            f"{args.model_path} is a directory: a training checkpoint "
-            "directory (the JAX package's orbax TrainState) cannot be read "
-            "by the port; the port's training checkpoint is ROADMAP Queue 1 "
-            "item 11. Pass a training-G .npz, a .pt state_dict or a "
-            "network-snapshot-*.pkl.")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested but no CUDA "
@@ -116,7 +109,24 @@ def main(argv=None) -> dict:
     cfg = MiganConfig(resolution=args.resolution, depthwise=True,
                       reparametrize=True,
                       num_reparam_tensors=args.num_reparam_tensors)
-    train_g = load_train_generator(args.model_path, cfg).to(dev).eval()
+    if os.path.isdir(args.model_path):
+        # a training checkpoint of the port (log/<run>/weight/step_N or
+        # the weight/ dir itself): fold the EMA weights, as the reference
+        # export folds a snapshot's G_ema
+        from ..models.migan import Generator
+        from ..train.checkpoint import extract_field, latest
+
+        path = latest(args.model_path) or args.model_path
+        print(f"extracting params_G_ema from {path}")
+        try:
+            state = extract_field(path, "params_G_ema")
+        except (ValueError, FileNotFoundError) as e:
+            raise SystemExit(str(e)) from e
+        train_g = Generator(cfg)
+        train_g.load_state_dict(state, strict=True)
+    else:
+        train_g = load_train_generator(args.model_path, cfg)
+    train_g = train_g.to(dev).eval()
 
     print("Folding weights...")
     folded = fold_generator(train_g).eval()

@@ -30,12 +30,16 @@
 //   bfloat16  m16n8k16 bf16 x bf16 -> f32; A fragments are 32-bit shared
 //             loads, B fragments ldmatrix.trans from the [KC][TO] stage;
 //   float32   three m16n8k8 TF32 products per step on a hi/lo split of
-//             both operands, a_lo b_hi + a_hi b_lo + a_hi b_hi (the
-//             a_lo b_lo term, ~2^-22 relative, is dropped). One TF32
-//             product keeps ~11 bits and misses the float32 hold of the
-//             plain version (1e-4); the split keeps ~22. The split is made
-//             in registers as the fragments are read, so neither operand
-//             is stored twice.
+//             both operands: lo.hi + hi.lo on the tensor cores into a
+//             second sum, and hi.hi, the large term, of each k step into a
+//             zeroed fragment that is added to the float32 sum on the CUDA
+//             cores, which round to nearest where the tensor core's own
+//             accumulation truncates. Accumulating hi.hi on the tensor
+//             cores across K made the kernels 5-10x further from float64
+//             than the plain float32 version; a three-way split did not
+//             change that, moving the sum did (PERF.md). The splits are
+//             made in registers as the fragments are read, so neither
+//             operand is stored twice.
 // Row strides are padded (A: KC + 4 floats or KC + 8 bf16; B: TO + 8) so
 // that the fragment loads of a warp fall in distinct banks.
 //
@@ -204,9 +208,12 @@ __device__ __forceinline__ void mma_chunk(Acc<G>& acc,
   }
 }
 
-// acc += A stage x B stage, float32 operands as three TF32 products.
+// acc += A stage x B stage, float32 operands as three TF32 products:
+// a_lo b_hi + a_hi b_lo into `small` on the tensor cores, and a_hi b_hi of
+// each k step into a zeroed fragment added to acc on the CUDA cores.
 template <typename G>
-__device__ __forceinline__ void mma_chunk(Acc<G>& acc, const float* As,
+__device__ __forceinline__ void mma_chunk(Acc<G>& acc, Acc<G>& small,
+                                          const float* As,
                                           const float* Bs) {
   using R = Ring<float, G>;
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -230,12 +237,23 @@ __device__ __forceinline__ void mma_chunk(Acc<G>& acc, const float* As,
       split_tf32(p[8 * R::KS + 4], ah[3], al[3]);
 #pragma unroll
       for (int ni = 0; ni < G::NI; ++ni) {
-        mma_tf32(acc[mi][ni], al, bh[ni][0], bh[ni][1]);
-        mma_tf32(acc[mi][ni], ah, bl[ni][0], bl[ni][1]);
-        mma_tf32(acc[mi][ni], ah, bh[ni][0], bh[ni][1]);
+        mma_tf32(small[mi][ni], al, bh[ni][0], bh[ni][1]);
+        mma_tf32(small[mi][ni], ah, bl[ni][0], bl[ni][1]);
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, ah, bh[ni][0], bh[ni][1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[r];
       }
     }
   }
+}
+
+// acc += A stage x B stage for bfloat16 operands; `small` is not used.
+template <typename G>
+__device__ __forceinline__ void mma_chunk(Acc<G>& acc, Acc<G>&,
+                                          const __nv_bfloat16* As,
+                                          const __nv_bfloat16* Bs) {
+  mma_chunk<G>(acc, As, Bs);
 }
 
 // The K loop. The kernel keeps two stages of its stencil input (x) after
@@ -255,12 +273,13 @@ __device__ __forceinline__ void k_loop(Acc<G>& acc, unsigned char* smem,
                                        const T* __restrict__ W, int C, int O,
                                        int o0, XLoad& xload, Phase1& phase1) {
   using R = Ring<T, G>;
+  Acc<G> small;  // float32: the small terms' sum
 #pragma unroll
   for (int mi = 0; mi < G::MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < G::NI; ++ni)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = small[mi][ni][r] = 0.f;
   T* const B0 = reinterpret_cast<T*>(smem);
   T* const A0 = reinterpret_cast<T*>(smem + 2 * R::B_BYTES);
   constexpr int BE = R::B_BYTES / sizeof(T), AE = R::A_BYTES / sizeof(T);
@@ -283,12 +302,20 @@ __device__ __forceinline__ void k_loop(Acc<G>& acc, unsigned char* smem,
     cp_async_commit();
     if (i + 1 < nk) {
       phase1(i + 1, s ^ 1, A0 + (s ^ 1) * AE,
-             [&] { mma_chunk<G>(acc, As, Bs); });
+             [&] { mma_chunk<G>(acc, small, As, Bs); });
     } else {
-      mma_chunk<G>(acc, As, Bs);
+      mma_chunk<G>(acc, small, As, Bs);
     }
     cp_async_wait_all();
     __syncthreads();
+  }
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += small[mi][ni][r];
   }
 }
 

@@ -1,8 +1,10 @@
-"""A threaded prefetching batch loader: the port's own copy of
-`migan_tpu/data/sampler.py` (`_item_rng`, `DataLoader`) and of
-`migan_tpu/data/factory.py::collate` (numpy only), as the single-process
-evaluation uses them. The samplers and the loader's multi-process item
-positions come with the trainer and the data-parallel evaluation.
+"""The training sampler and a threaded prefetching batch loader: the
+port's own copy of `migan_tpu/data/sampler.py` (`InfiniteSampler`,
+`_item_rng`, `DataLoader` with `start_position`) and of
+`migan_tpu/data/factory.py::collate` (numpy only), as single-process
+training and evaluation use them. The shard sampler and the loader's
+multi-process item positions (`position_stride`, `position_block`) come
+with data parallelism.
 
   - The loader is a thread pool with a bounded queue; PIL decode and numpy
     release the GIL in their hot parts.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, List, Sequence
+from typing import Any, Iterator, List, Sequence
 
 import numpy as np
 
@@ -39,6 +41,24 @@ def collate(items: Sequence[Any]):
     return list(items)
 
 
+class InfiniteSampler:
+    """Endless shuffled index stream for training: pass after pass of
+    `np.random.RandomState(seed + epoch).permutation(dataset_len)`
+    (reference misc.py:109-140, with seed-derived reshuffling), the
+    single-process stream of the JAX package's block-sharded sampler."""
+
+    def __init__(self, dataset_len: int, seed: int = 0):
+        self.n = dataset_len
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[int]:
+        epoch = 0
+        while True:
+            yield from (int(i) for i in np.random.RandomState(
+                self.seed + epoch).permutation(self.n))
+            epoch += 1
+
+
 def _item_rng(seed: int, position: int) -> np.random.RandomState:
     """Per-item RandomState from (loader seed, global item position):
     the same stream whatever the worker count or thread scheduling."""
@@ -54,12 +74,15 @@ class DataLoader:
     any RNG the dataset consumes is deterministic at any worker count.
     When None, the dataset draws from the global ``np.random`` stream,
     which is deterministic only at num_workers=1. The t-th item this
-    loader yields sits at position t of the stream.
+    loader yields sits at position start_position + t of the stream: a
+    resumed run passes the items already consumed, so the per-item RNG
+    continues where it stopped (the caller fast-forwards `indices` to
+    match).
     """
 
     def __init__(self, dataset, batch_size: int, indices=None,
                  num_workers: int = 4, prefetch: int = 4,
-                 drop_last: bool = True, seed=None):
+                 drop_last: bool = True, seed=None, start_position: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.indices = indices
@@ -72,6 +95,7 @@ class DataLoader:
                 "support per-item RNG (set supports_rng = True and "
                 "accept __getitem__(idx, rng=...))")
         self.seed = seed
+        self.start_position = start_position
 
     def _index_batches(self):
         """Yields (t0, [dataset indices]); t0 is the local ordinal of the
@@ -113,7 +137,8 @@ class DataLoader:
                     items = [self.dataset[i] for i in idxs]
                 else:
                     items = [self.dataset.__getitem__(
-                        i, rng=_item_rng(self.seed, t0 + j))
+                        i, rng=_item_rng(self.seed,
+                                         self.start_position + t0 + j))
                         for j, i in enumerate(idxs)]
                 q.put((seq, collate(items)))
 

@@ -1,14 +1,18 @@
-"""Weight bridge of the training networks (`models/migan.py`).
+"""Weight bridge of the training networks (`models/migan.py`) and of the
+Co-Mod-GAN teacher and StyleGAN2 nets (`models/comodgan.py`,
+`models/stylegan.py`).
 
-- The JAX package's training-params `.npz` (`migan_tpu/io/checkpoint.py`):
-  flat `/`-joined pytree paths, conv weights HWIO, re-param stacks
-  `w_stack` [N, kh, kw, I/g, O], dense weights [out, in]. Read and written
-  with numpy alone.
+- The JAX package's params `.npz` (`migan_tpu/io/checkpoint.py`): flat
+  `/`-joined pytree paths, conv weights HWIO, re-param stacks `w_stack`
+  [N, kh, kw, I/g, O], dense weights [out, in], the StyleGAN synthesis
+  `const` [res, res, C], `noise_const`, `noise_strength` and the
+  mapping's `w_avg` as they are. Read and written with numpy alone.
 - Reference training state_dicts (`migan_tpu/io/torch_import.py:104-173`):
-  OIHW weights, the re-param tensors as `w0..wN-1`, and `resample_filter`
-  buffers, which are dropped (the port computes its filters).
-- The port's modules: OIHW weights, `w_stack` [N, O, I/g, kh, kw], keys
-  the JAX paths joined by dots.
+  OIHW weights, the re-param tensors as `w0..wN-1`, `const` [C, res, res],
+  `w_avg`, and `resample_filter` buffers, which are dropped (the port
+  computes its filters).
+- The port's modules: OIHW weights, `w_stack` [N, O, I/g, kh, kw],
+  `const` [C, res, res], keys the JAX paths joined by dots.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ import torch
 
 from ..models.migan import Generator, MiganConfig
 
-_LEAVES = ("weight", "bias", "noise_const", "noise_strength")
+_LEAVES = ("weight", "bias", "noise_const", "noise_strength", "const",
+           "w_avg")
+
+
+def _leaf(key: str) -> str:
+    return re.split(r"[./]", key)[-1]
 
 
 def _to_torch_layout(key: str, v: np.ndarray) -> np.ndarray:
@@ -29,6 +38,8 @@ def _to_torch_layout(key: str, v: np.ndarray) -> np.ndarray:
         return v.transpose(0, 4, 3, 1, 2)
     if v.ndim == 4:                              # HWIO -> OIHW
         return v.transpose(3, 2, 0, 1)
+    if _leaf(key) == "const":                    # HWC -> CHW
+        return v.transpose(2, 0, 1)
     return v
 
 
@@ -37,13 +48,15 @@ def _to_jax_layout(key: str, v: np.ndarray) -> np.ndarray:
         return v.transpose(0, 3, 4, 2, 1)
     if v.ndim == 4:
         return v.transpose(2, 3, 1, 0)
+    if _leaf(key) == "const":
+        return v.transpose(1, 2, 0)
     return v
 
 
 def params_to_state(flat: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
-    """Flat JAX training params (`/`-joined paths) -> the port's float32
-    state_dict."""
+    """Flat JAX params (`/`-joined paths; the training nets, Co-Mod-GAN or
+    the StyleGAN2 nets) -> the port's float32 state_dict."""
     # np.array, not ascontiguousarray, which makes a 0-d array 1-d
     return {k.replace("/", "."): torch.from_numpy(np.array(
         _to_torch_layout(k, np.asarray(v, np.float32)), order="C"))
@@ -65,15 +78,17 @@ def load_train_npz(path: str) -> Dict[str, torch.Tensor]:
 
 
 def save_train_npz(path: str, module: torch.nn.Module) -> None:
-    """Write a training net in the JAX package's training-params `.npz`."""
+    """Write a training net, or a Co-Mod-GAN / StyleGAN2 net, in the JAX
+    package's params `.npz`."""
     np.savez(path, **state_to_params(module.state_dict()))
 
 
 def import_migan_train(state_dict: Mapping[str, np.ndarray]
                        ) -> Dict[str, torch.Tensor]:
-    """A reference training state_dict (G or D; numpy or torch values) ->
-    the port's state_dict: `w0..wN-1` stacked into `w_stack`,
-    `resample_filter` buffers dropped."""
+    """A reference state_dict (the training G or D, Co-Mod-GAN, StyleGAN2;
+    numpy or torch values) -> the port's state_dict: `w0..wN-1` stacked
+    into `w_stack`, `resample_filter` buffers dropped; `const` keeps the
+    reference's [C, res, res], the port's layout."""
     reparam: Dict[str, list] = {}
     out: Dict[str, torch.Tensor] = {}
     for key, val in state_dict.items():
@@ -112,26 +127,30 @@ def export_migan_train(state: Mapping[str, torch.Tensor]
     return out
 
 
-def load_train_generator(path: str, cfg: MiganConfig) -> Generator:
-    """A float32 training `Generator` on the CPU from the JAX package's
-    training `.npz`, a reference `.pt` training state_dict, or a reference
-    `network-snapshot-*.pkl` (its `G_ema`, else its `G`)."""
+def load_train_state(path: str) -> Dict[str, torch.Tensor]:
+    """The port's float32 state_dict of a training net, Co-Mod-GAN or
+    StyleGAN2 net from the JAX package's `.npz`, a reference `.pt`/`.pth`
+    state_dict, or a reference `network-snapshot-*.pkl` (its `G_ema`, else
+    its `G`)."""
     if path.endswith(".npz"):
-        state = load_train_npz(path)
-    elif path.endswith(".pkl"):
+        return load_train_npz(path)
+    if path.endswith(".pkl"):
         from .pkl_import import load_reference_snapshot
 
         snap = load_reference_snapshot(path)
         sd: Optional[dict] = snap.get("G_ema") or snap.get("G")
         if sd is None:
             raise ValueError(f"{path}: no G_ema or G module in the snapshot")
-        state = import_migan_train(sd)
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if hasattr(sd, "state_dict"):
-            sd = sd.state_dict()
-        state = import_migan_train({k: v.detach().numpy()
-                                    for k, v in sd.items()})
+        return import_migan_train(sd)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return import_migan_train({k: v.detach().numpy() for k, v in sd.items()})
+
+
+def load_train_generator(path: str, cfg: MiganConfig) -> Generator:
+    """A float32 training `Generator` on the CPU from any file of
+    :func:`load_train_state`."""
     g = Generator(cfg)
-    g.load_state_dict(state, strict=True)
+    g.load_state_dict(load_train_state(path), strict=True)
     return g

@@ -78,6 +78,16 @@ class MiganConfig:
         return setup_filter(list(self.resample_filter), device=device)
 
 
+def randn(shape, generator: torch.Generator, device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """N(0, 1) draws of `shape` from `generator`, made on the generator's
+    device and moved to `device`: the stream depends on the generator
+    alone, so a CPU generator gives a run on the card the CPU run's
+    noise."""
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=dtype).to(device)
+
+
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
@@ -149,8 +159,7 @@ class ConvLayer(nn.Module):
             if generator is None:
                 raise ValueError("noise_mode='random' needs a "
                                  "torch.Generator")
-            r = torch.randn((n, h, w, 1), generator=generator,
-                            device=x.device, dtype=x.dtype)
+            r = randn((n, h, w, 1), generator, x.device, x.dtype)
             return r * self.noise_strength.to(x.dtype)
         nc = self.noise_const
         nh, nw = nc.shape
@@ -312,8 +321,8 @@ def generator_apply(g: Generator, x: torch.Tensor, *,
                     generator: Optional[torch.Generator] = None,
                     return_intermediate: bool = False):
     """Reference migan.py:546-555. x: [N, H, W, 4] NHWC -> [N, H, W, 3]
-    (and the intermediates). noise_mode 'random' draws from `generator`,
-    which lives on x's device."""
+    (and the intermediates). noise_mode 'random' draws from `generator`
+    (on its own device, see `randn`)."""
     f = g.cfg.filt(x.device)
     z, feats = encoder_apply(g.encoder, g.cfg, x, f)
     img, inter = synthesis_apply(g.synthesis, g.cfg, z, feats, f,

@@ -3,8 +3,10 @@ reference torch_utils/ops/conv2d_resample.py:59-154), through `F.conv2d`
 on the NCHW view of the same memory.
 
 `conv2d` is the plain grouped conv, the plain path that the fused kernels
-replace; `conv2d_resample` is the one conv primitive of the training nets,
-a conv with FIR up- or down-sampling in the JAX package's four orderings.
+replace (a depthwise one through `ops/depthwise.py`, whose backward the
+training nets can differentiate again); `conv2d_resample` is the one conv
+primitive of the training nets, a conv with FIR up- or down-sampling in
+the JAX package's four orderings.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .depthwise import depthwise_conv2d
 from .filters import filter_size, parse_padding
 from .upfirdn2d import upfirdn2d
 
@@ -39,7 +42,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
     w = w.permute(3, 2, 0, 1).to(x.dtype)
     if not flip_weight:
         w = w.flip([2, 3])
-    if py0 == py1 and px0 == px1 and py0 >= 0 and px0 >= 0:
+    symmetric = py0 == py1 and px0 == px1 and py0 >= 0 and px0 >= 0
+    if groups > 1 and groups == x.shape[-1] == w.shape[0]:
+        # depthwise: its own backward (ops/depthwise.py)
+        if not symmetric:
+            y, py0, px0 = F.pad(y, [px0, px1, py0, py1]), 0, 0
+        y = depthwise_conv2d(y, w, stride, (py0, px0))
+    elif symmetric:
         y = F.conv2d(y, w, stride=stride, padding=(py0, px0), groups=groups)
     else:
         y = F.conv2d(F.pad(y, [px0, px1, py0, py1]), w, stride=stride,

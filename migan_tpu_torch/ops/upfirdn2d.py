@@ -2,9 +2,9 @@
 
 Port of `migan_tpu/ops/upfirdn2d.py` (reference torch_utils/ops/upfirdn2d.py,
 `_upfirdn2d_ref` at :169-208): zero insertion by reshape + pad, padding or
-cropping by `F.pad`, the FIR as a depthwise `F.conv2d` whose stride does the
-downsampling. Tensors are NHWC at the boundary; the convs run on the NCHW
-view of the same memory.
+cropping by `F.pad`, the FIR as a depthwise convolution
+(`ops/depthwise.py`) whose stride does the downsampling. Tensors are NHWC
+at the boundary; the convs run on the NCHW view of the same memory.
 """
 
 from __future__ import annotations
@@ -12,13 +12,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .depthwise import depthwise_conv2d
 from .filters import parse_padding, parse_scaling, filter_size
 
 
 def _depthwise(y: torch.Tensor, f: torch.Tensor, stride) -> torch.Tensor:
     c = y.shape[1]
     w = f[None, None].expand(c, 1, *f.shape).contiguous()
-    return F.conv2d(y, w, stride=stride, groups=c)
+    return depthwise_conv2d(y, w, stride)
 
 
 def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up=1, down=1,

@@ -366,11 +366,18 @@ def test_export_cli(kind, train32, tmp_path):
 
 
 def test_export_cli_refuses_a_directory(tmp_path):
-    with pytest.raises(SystemExit, match="item 11"):
-        export_cli.main(["--model-path", str(tmp_path), "--resolution",
-                         "32", "--origs-dir", str(tmp_path), "--masks-dir",
-                         str(tmp_path), "--output-dir", str(tmp_path / "o"),
-                         "--device", "cpu"])
+    """A checkpoint directory that is not the port's (here laid out as the
+    JAX package's orbax TrainState) is refused with the reason; the port's
+    own checkpoint directory is read (tests/test_torch_train_loop.py)."""
+    ckpt = tmp_path / "weight" / "step_00000002"
+    ckpt.mkdir(parents=True)
+    (ckpt / "_CHECKPOINT_METADATA").write_text("{}")
+    for path in (ckpt, ckpt.parent):
+        with pytest.raises(SystemExit, match="orbax"):
+            export_cli.main(["--model-path", str(path), "--resolution",
+                             "32", "--origs-dir", str(tmp_path),
+                             "--masks-dir", str(tmp_path), "--output-dir",
+                             str(tmp_path / "o"), "--device", "cpu"])
 
 
 def test_create_pipeline_cli(train32, tmp_path):

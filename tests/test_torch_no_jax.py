@@ -3,8 +3,9 @@ fresh interpreter imports every module of the package, runs a tiny forward
 through the kernel chain, the demo's file readers and writer on a PNG, the
 app pipeline, a served request in each of the server's modes and the
 evaluation CLI, the export CLI (training weights folded, the kernel
-chain exported) and the create_pipeline CLI (a bucket and the dynamic
-program), and finds neither in sys.modules. `chip_smoke.py` names neither
+chain exported), the create_pipeline CLI (a bucket and the dynamic
+program) and one step of the training CLI, and finds neither in
+sys.modules. `chip_smoke.py` names neither
 in any of its imports, and imports the demo, serve, evaluate, export and
 create_pipeline entry points."""
 
@@ -17,6 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile
+import torch
+torch.set_num_threads(2)   # one of the gate's 6 workers
 import migan_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(migan_tpu_torch.__path__,
                                                 "migan_tpu_torch.")]
@@ -109,10 +112,38 @@ with tempfile.TemporaryDirectory() as d:
         "--output-dir", f"{d}/cp",
         "--device", "cpu", "--buckets", "64", "--polymorphic"])
     assert set(written) == {"64", "dynamic"}
+
+    # the training CLI: one step of narrow 8 px nets on a config root
+    import yaml
+    net = {"resolution": 8, "ch_base": 256, "depthwise": True,
+           "reparametrize": True, "num_reparam_tensors": 2}
+    os.makedirs(f"{d}/tr/train_256/a")
+    os.makedirs(f"{d}/cfg/experiment")
+    Image.fromarray(im[0]).save(f"{d}/tr/train_256/a/a.png")
+    with open(f"{d}/cfg/experiment/t.yaml", "w") as f:
+        yaml.safe_dump({
+            "env": {"log_root_dir": f"{d}/runs"},
+            "model_g": {"type": "migan_generator", "args": {
+                "encoder": {"args": net}, "synthesis": {"args": net}}},
+            "model_d": {"type": "migan_discriminator", "args": net},
+            "train": {"dataset": {
+                "name": "t", "type": "places2", "root_dir": f"{d}/tr",
+                "mode": "train256", "loader": [{"type": "DefaultLoader"}],
+                "formatter": {"type": "FreeFormMaskFormatter",
+                              "args": {"resolution": 8}}},
+                "batch_size": 1, "loss_kwargs": {"r1_gamma": 10},
+                "g_opt_kwargs": {"lr": 1e-3, "betas": [0, 0.99],
+                                 "eps": 1e-8},
+                "d_opt_kwargs": {"lr": 1e-3, "betas": [0, 0.99],
+                                 "eps": 1e-8},
+                "d_reg_interval": 16, "snapshot": {"checkpoint": 1}}}, f)
+    from migan_tpu_torch.cli import train
+    assert train.main(["--experiment", "t", "--config-root", f"{d}/cfg",
+                       "--device", "cpu", "--max-steps", "1"]).step == 1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 41 else 0)
+sys.exit(1 if bad or len(names) < 57 else 0)
 """
 
 
