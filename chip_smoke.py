@@ -69,16 +69,35 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      kernel chain is held below 0.5% too;
   8. trains: the training CLI (`migan_tpu_torch.cli.train --experiment
      migan_places256`, full width, batch 32, a seeded full-width
-     Co-Mod-GAN-256 teacher, R1 at steps 0 and 16, `--max-steps 20`, a
+     Co-Mod-GAN-256 teacher, R1 at step 0, `--max-steps 12`, a
      checkpoint every 2 ticks of 4 steps) in a process of its own with
      deterministic algorithms; a second run SIGKILLed after its first
-     checkpoint and resumed to step 20, its final state held bit-equal to
+     checkpoint and resumed to step 12, its final state held bit-equal to
      the first run's; one step at batch 2 on the card against the CPU
      from the same state and noise; each phase's device ms with default
      and with deterministic algorithms, the peak memory of a batch-32
      step, and the device's busy share in one deterministic step under
      torch.profiler; the export CLI on the checkpoint's
-     `params_G_ema`. Prints s/kimg from the tick lines.
+     `params_G_ema`. Prints s/kimg from the tick lines;
+  9. trains the published FFHQ experiment with its in-loop FID: the
+     training CLI (`--experiment migan_ffhq256`, full width, batch 32,
+     the config's losses, phase 8's teacher, default algorithms) in a
+     process of its own on a seeded `ffhq256x256.zip` (128 distinct val
+     images, filler entries to the split at entry 10,000, 64 distinct
+     train images) with native masks (`mask_backend=native`, the C++
+     rasterizer built from `csrc/host/maskgen.cpp`) and a seeded
+     TF-named Inception state dict, 12 steps in ticks of 4, an
+     evaluation of `fid10k_full_inpainting` (capped at the 128 val
+     items) at ticks 1 and 2; checks the `nvidia_tf` flavor in the log,
+     one finite FID per evaluation in `metric-*.jsonl` and as
+     `Metrics/fid` in stats.jsonl, one checkpoint under `weight/best/`
+     at the lowest FID, one file in `fid-cache/` computed at the first
+     evaluation and read at the second; holds the best checkpoint's
+     `params_G_ema` through `compute_feature_stats_for_inpainting` on
+     8 val items on the card against the CPU (features within 1e-3
+     relative L2); prints s/kimg, each evaluation's time and its split
+     (real stats, composite stats, Frechet distance), peak device
+     memory and host masks/s at 256 on one thread, native against PIL.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -1362,7 +1381,7 @@ def phase_export(tmp: str, gpu: str, results: dict) -> None:
 # Phase 8: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_STEPS = 20          # R1 runs at steps 0 and 16 (d_reg_interval 16)
+TRAIN_STEPS = 12          # R1 runs at step 0 (d_reg_interval 16)
 TRAIN_BATCH = 32          # the config's own
 TICK_STEPS = 4            # a tick of 4 steps, a checkpoint every 2 ticks
 CKPT_TICKS = 2
@@ -1625,9 +1644,31 @@ def _phase_times(teacher_path: str, gpu: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train(tmp: str, gpu: str, results: dict) -> None:
+def _write_teacher(tmp: str) -> str:
+    """A seeded full-width Co-Mod-GAN-256 teacher (non-zero noise
+    strengths) as the JAX package's `.npz`; returns its path."""
+    from migan_tpu_torch.io import save_train_npz
+    from migan_tpu_torch.models import comodgan
+
+    t0 = time.perf_counter()
+    teacher = comodgan.generator_init(comodgan.CoModGANConfig(resolution=256),
+                                      torch.Generator().manual_seed(SEED + 9))
+    with torch.no_grad():
+        for name, p in teacher.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.1)
+    n_teacher = sum(p.numel() for p in teacher.parameters())
+    check(n_teacher == 79_177_378, f"teacher: {n_teacher:,} parameters")
+    teacher_path = os.path.join(tmp, "comodgan_256_seeded.npz")
+    save_train_npz(teacher_path, teacher)
+    print(f"phase8 seeded Co-Mod-GAN-256 teacher: {n_teacher:,} parameters, "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    return teacher_path
+
+
+def phase_train(tmp: str, gpu: str, results: dict) -> str:
     """`cli.train --experiment migan_places256` (full width, batch 32,
-    the seeded full-width Co-Mod-GAN-256 teacher, R1) for 20 steps; a run
+    the seeded full-width Co-Mod-GAN-256 teacher, R1) for 12 steps; a run
     SIGKILLed after its first checkpoint and resumed, held bit-equal to
     the uninterrupted one; one step on the card against the CPU; the
     phases' device times; the export CLI on the checkpoint."""
@@ -1637,8 +1678,6 @@ def phase_train(tmp: str, gpu: str, results: dict) -> None:
     import numpy as np
 
     from migan_tpu_torch.cli import export
-    from migan_tpu_torch.io import save_train_npz
-    from migan_tpu_torch.models import comodgan
     from migan_tpu_torch.models.registry import get_model
     from migan_tpu_torch.ops.kernels import (
         launch_counts, reset_launch_counts,
@@ -1651,21 +1690,7 @@ def phase_train(tmp: str, gpu: str, results: dict) -> None:
     # the training runs are processes of their own and need most of the
     # card: give back what the earlier phases cached
     torch.cuda.empty_cache()
-    # a seeded full-width Co-Mod-GAN-256 teacher, non-zero noise strengths
-    t0 = time.perf_counter()
-    teacher = comodgan.generator_init(comodgan.CoModGANConfig(resolution=256),
-                                      torch.Generator().manual_seed(SEED + 9))
-    with torch.no_grad():
-        for name, p in teacher.named_parameters():
-            if name.endswith("noise_strength"):
-                p.fill_(0.1)
-    n_teacher = sum(p.numel() for p in teacher.parameters())
-    check(n_teacher == 79_177_378, f"teacher: {n_teacher:,} parameters")
-    teacher_path = os.path.join(tmp, "comodgan_256_seeded.npz")
-    save_train_npz(teacher_path, teacher)
-    del teacher
-    print(f"phase8 seeded Co-Mod-GAN-256 teacher: {n_teacher:,} parameters, "
-          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    teacher_path = _write_teacher(tmp)
 
     # 1. the uninterrupted run
     root_a = os.path.join(tmp, "train_a")
@@ -1778,6 +1803,279 @@ def phase_train(tmp: str, gpu: str, results: dict) -> None:
           f"the kernel chain {stats['chain_diff_pct']:.6f}% (limit "
           f"{FOLD_DIFF_LIMIT}%), {time.perf_counter() - t0:.2f} s wall, "
           f"launches {counts}", flush=True)
+    return teacher_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the published FFHQ training with its in-loop FID, on the card
+# ---------------------------------------------------------------------------
+
+FFHQ_RES = 256
+# the zip: EVAL_ITEMS distinct images at the head of the val split (what
+# the metric reads), filler entries (one small PNG's bytes, never read) up
+# to the split at entry 10,000, then FFHQ_TRAIN_ITEMS distinct images for
+# the train split
+FFHQ_EVAL_ITEMS, FFHQ_SPLIT, FFHQ_TRAIN_ITEMS = 128, 10000, 64
+FFHQ_TICK_STEPS = 4       # ticks of 4 steps, an evaluation at each from 1
+FFHQ_EVALS = 2
+FFHQ_STEPS = FFHQ_TICK_STEPS * (FFHQ_EVALS + 1)
+FFHQ_METRIC = "fid10k_full_inpainting"
+FFHQ_HOLD_ITEMS = 8       # card against CPU: the first 8 val items
+MASK_RATE_N = {"native": 400, "pil": 100}
+
+
+def _ffhq_zip(root: str, res: int, eval_items: int, train_items: int,
+              seed: int) -> None:
+    """`<root>/ffhq256x256.zip` (whatever `res`), entries named by a
+    5-digit stem in a shuffled order: distinct seeded images (smooth
+    colour fields plus noise) at stems [0, eval_items) and
+    [FFHQ_SPLIT, FFHQ_SPLIT + train_items), a flat PNG at the others."""
+    import io
+    import zipfile
+
+    import numpy as np
+    from PIL import Image
+
+    def png(img) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG", compress_level=1)
+        return buf.getvalue()
+
+    def image(i: int):
+        rng = np.random.RandomState(seed + i)
+        low = Image.fromarray(rng.randint(0, 256, (8, 8, 3), np.uint8))
+        smooth = np.asarray(low.resize((res, res), Image.BICUBIC), np.int16)
+        noise = rng.randint(-12, 13, (res, res, 3))
+        return np.clip(smooth + noise, 0, 255).astype(np.uint8)
+
+    filler = png(np.full((res, res, 3), 128, np.uint8))
+    distinct = set(range(eval_items)) | set(
+        range(FFHQ_SPLIT, FFHQ_SPLIT + train_items))
+    order = np.random.RandomState(seed).permutation(FFHQ_SPLIT + train_items)
+    with zipfile.ZipFile(os.path.join(root, "ffhq256x256.zip"), "w",
+                         zipfile.ZIP_STORED) as z:
+        for i in order:
+            z.writestr(f"{i // 1000:02d}000/{i:05d}.png",
+                       png(image(int(i))) if i in distinct else filler)
+
+
+def _ffhq_argv(root: str, teacher: str, detector: str, log_root: str,
+               batch: int = 32) -> list:
+    """The training CLI's arguments: migan_ffhq256 as published, with
+    only the data, the teacher, native masks, the detector, the metric's
+    item cap, an evaluation every tick and ticks of FFHQ_TICK_STEPS steps
+    set; `batch`, the config's own, for the tick length."""
+    return ["--max-steps", str(FFHQ_STEPS),
+            "--set", f"train.dataset.root_dir={root}",
+            "--set", f"eval.dataset.root_dir={root}",
+            "--set", f"train.image_level_kd_kwargs.teacher1_path={teacher}",
+            "--set", "train.dataset.formatter.args.mask_backend=native",
+            "--set", f"eval.inception_weights={detector}",
+            "--set", f"eval.max_items={FFHQ_EVAL_ITEMS}",
+            "--set", "train.snapshot.evaluate=1",
+            "--set", f"train.kimg_per_tick={FFHQ_TICK_STEPS * batch / 1000}",
+            "--set", f"env.log_root_dir={log_root}"]
+
+
+def _ffhq_run_checks(run_dir: str, log: str) -> dict:
+    """The metric branch's records of a finished run: the detector's
+    flavor, one metric line and one `Metrics/fid` line per evaluation,
+    finite FIDs, one best checkpoint at the lowest FID, the dataset
+    statistics computed once and read back at every later evaluation.
+    Returns the FIDs, their steps, the evaluations' times and the best
+    checkpoint's path."""
+    import math
+
+    check("training-time FID detector flavor: nvidia_tf" in log,
+          "phase9: the nvidia_tf detector flavor is not in the log")
+    with open(os.path.join(run_dir, f"metric-{FFHQ_METRIC}.jsonl")) as f:
+        recs = [json.loads(l) for l in f]
+    fids = [r["results"]["fid"] for r in recs]
+    check(len(recs) == FFHQ_EVALS and all(
+        math.isfinite(v) and v > 0 for v in fids),
+        f"phase9: metric records {recs}")
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        logged = [r["Metrics/fid"] for r in map(json.loads, f)
+                  if "Metrics/fid" in r]
+    check(logged == fids, f"phase9: Metrics/fid in stats.jsonl {logged}, "
+          f"metric records {fids}")
+    steps = [FFHQ_TICK_STEPS * (t + 1) for t in range(1, FFHQ_EVALS + 1)]
+    best_dir = os.path.join(run_dir, "weight", "best")
+    best = sorted(d for d in os.listdir(best_dir) if d.startswith("step_"))
+    want = steps[min(range(len(fids)), key=fids.__getitem__)]
+    check(best == [f"step_{want:08d}"], f"phase9: weight/best holds {best}, "
+          f"the lowest FID is step {want}'s ({fids})")
+    cache = os.listdir(os.path.join(run_dir, "fid-cache"))
+    check(len(cache) == 1, f"phase9: fid-cache holds {cache}")
+    path = os.path.join(run_dir, "fid-cache", cache[0])
+    computed = log.count(f"dataset feature stats computed, saved to {path}")
+    read = log.count(f"dataset feature stats read from {path}")
+    check(computed == 1 and read == FFHQ_EVALS - 1,
+          f"phase9: dataset stats computed {computed} times, read "
+          f"{read} times")
+    return {"fids": fids, "steps": steps,
+            "times": [r["total_time"] for r in recs],
+            "best": os.path.join(best_dir, best[0])}
+
+
+def _ffhq_hold(best: str, root: str, detector: str,
+               experiment: str = "migan_ffhq256", config_root: str = "configs",
+               devices=("cuda", "cpu"), items: int = FFHQ_HOLD_ITEMS) -> dict:
+    """The best checkpoint's `params_G_ema` through
+    `compute_feature_stats_for_inpainting` on the first `items` val items
+    on each device, from the same global np.random seed (the val
+    formatter draws its masks from it): each item's composite features,
+    and its real image's."""
+    import numpy as np
+
+    from migan_tpu_torch.data.factory import get_dataset
+    from migan_tpu_torch.evalx import inception, metrics
+    from migan_tpu_torch.models import migan
+    from migan_tpu_torch.models.registry import get_model
+    from migan_tpu_torch.train import checkpoint as ckpt
+    from migan_tpu_torch.utils.config import ConfigBanks
+
+    cfg = ConfigBanks(config_root).experiment(experiment)
+    cfg["eval"]["dataset"]["root_dir"] = root
+    dataset = get_dataset(cfg["eval"]["dataset"])
+    g_cfg = get_model()(cfg["model_g"]).cfg
+    state = ckpt.extract_field(best)
+    det_model, flavor = inception.load_inception_weights(detector)
+    out = {}
+    for dev in devices:
+        G = migan.Generator(g_cfg)
+        G.load_state_dict(state)
+        G.to(dev).eval().requires_grad_(False)
+        det = inception.make_detector(det_model.to(dev), flavor)
+        feats = []
+
+        def capture(x):
+            feats.append(det(x))
+            return feats[-1]
+
+        np.random.seed(SEED)
+        metrics.compute_feature_stats_for_inpainting(
+            dataset, lambda x: migan.generator_apply(G, x,
+                                                     noise_mode="const"),
+            capture, batch_size=items, max_items=items, device=dev)
+        np.random.seed(SEED)
+        metrics.compute_feature_stats_for_dataset(
+            dataset, capture, flavor, batch_size=items, max_items=items,
+            device=dev)
+        out[dev] = [f.double().cpu().numpy() for f in feats]
+    return out
+
+
+def _mask_rates(res: int) -> dict:
+    """Host masks/s at `res` on this thread: the native rasterizer (built
+    first, not timed) and the PIL generator, seeded masks, hole range
+    (0, 1)."""
+    import numpy as np
+
+    from migan_tpu_torch.data.fast_masks import fast_random_mask, load_library
+    from migan_tpu_torch.data.masks import RandomMask
+
+    load_library()
+    rates = {}
+    for name, fn in (("native", lambda i: fast_random_mask(
+                        res, (0.0, 1.0), seed=i)),
+                     ("pil", lambda i: RandomMask(
+                        res, (0.0, 1.0), rng=np.random.RandomState(i)))):
+        n = MASK_RATE_N[name]
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        rates[name] = n / (time.perf_counter() - t0)
+    return rates
+
+
+def phase_ffhq(tmp: str, gpu: str, teacher_path: str) -> None:
+    """`cli.train --experiment migan_ffhq256` (full width, batch 32, the
+    config's losses and KD, native masks) on a seeded zip with two in-loop
+    FID evaluations on a seeded NVIDIA TF-named detector; the metric
+    branch's records; the best checkpoint's features on the card against
+    the CPU; host mask rates."""
+    import subprocess
+
+    import numpy as np
+
+    from migan_tpu_torch.evalx import inception
+
+    root = os.path.join(tmp, "ffhq")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    _ffhq_zip(root, FFHQ_RES, FFHQ_EVAL_ITEMS, FFHQ_TRAIN_ITEMS, SEED + 90)
+    detector = os.path.join(tmp, "inception-2015-12-05.pt")
+    torch.save(inception.seeded_state_dict(SEED + 91, flavor="nvidia_tf"),
+               detector)
+    print(f"phase9 seeded ffhq256x256.zip ({FFHQ_SPLIT + FFHQ_TRAIN_ITEMS} "
+          f"entries, {FFHQ_EVAL_ITEMS} + {FFHQ_TRAIN_ITEMS} distinct, "
+          f"{os.path.getsize(os.path.join(root, 'ffhq256x256.zip')) / 2**20:.1f}"
+          f" MiB) and TF-named detector written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    log_root = os.path.join(tmp, "train_ffhq")
+    out_path = os.path.join(tmp, "train_ffhq.log")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "migan_tpu_torch.cli.train",
+             "--experiment", "migan_ffhq256",
+             *_ffhq_argv(root, teacher_path, detector, log_root)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+            stderr=subprocess.STDOUT, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        log = f.read()
+    check(proc.returncode == 0,
+          f"phase9: exit {proc.returncode}\n{log[-4000:]}")
+    run = _run_dir(log_root)
+    got = _ffhq_run_checks(run, log)
+    ticks = [l for l in _tick_lines(out_path) if "sec_per_kimg" in l]
+    for line in ticks:
+        print(f"phase9 {line}", flush=True)
+    spk = [float(l.split("sec_per_kimg ")[1].split()[0]) for l in ticks]
+    devmem = max(float(l.split("devmem ")[1].split("g")[0]) for l in ticks)
+    print(f"phase9 s/kimg from the tick lines: tick 0 (start-up included) "
+          f"{spk[0]}, ticks 1-{len(spk) - 1} {', '.join(map(str, spk[1:]))}"
+          f" (evaluations not included); peak device memory {devmem:.2f} "
+          f"GiB (the last tick's devmem); {FFHQ_STEPS} steps and "
+          f"{FFHQ_EVALS} evaluations in {wall:.1f} s wall, process start to "
+          f"exit ({gpu})", flush=True)
+    splits = [l.split("fid time split: ")[1] for l in log.splitlines()
+              if "fid time split: " in l]
+    check(len(splits) == FFHQ_EVALS, f"phase9: time splits {splits}")
+    for step, fid, sec, split in zip(got["steps"], got["fids"],
+                                     got["times"], splits):
+        print(f"phase9 {FFHQ_METRIC} after step {step} "
+              f"({FFHQ_EVAL_ITEMS} items, nvidia_tf detector): FID "
+              f"{fid:.6f}, total_time {sec:.2f} s; {split} (host wall, "
+              f"{os.cpu_count()} host cores; {gpu})", flush=True)
+    print(f"phase9 weight/best: {os.path.basename(got['best'])}, the lowest "
+          f"FID; fid-cache: one file, computed at the first evaluation and "
+          f"read at the second", flush=True)
+    feats = _ffhq_hold(got["best"], root, detector)
+    card, cpu = feats["cuda"], feats["cpu"]
+    rel = [np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+           for a, b in zip(card, cpu)]
+    fake_rel, real_rel = rel[0].max(), rel[1].max()
+    moved = (np.linalg.norm(card[0] - card[1], axis=1)
+             / np.linalg.norm(card[1], axis=1))
+    print(f"phase9 card vs CPU, {os.path.basename(got['best'])}'s "
+          f"params_G_ema through compute_feature_stats_for_inpainting "
+          f"({FFHQ_HOLD_ITEMS} val items, same global seed): composite "
+          f"features relative L2 max {fake_rel:.3e}, real images' "
+          f"{real_rel:.3e} (limit {EVAL_ACTS_RTOL}); composites move their "
+          f"features from the real image's by {moved.min():.3e} at least "
+          f"(median {np.median(moved):.3e})", flush=True)
+    check(max(fake_rel, real_rel) <= EVAL_ACTS_RTOL,
+          "phase9: card features differ from CPU")
+
+    rates = _mask_rates(FFHQ_RES)
+    print(f"phase9 host masks at {FFHQ_RES} on one thread: native "
+          f"{rates['native']:.1f}/s, PIL {rates['pil']:.1f}/s, "
+          f"{rates['native'] / rates['pil']:.1f}x ({os.cpu_count()} host "
+          f"cores; {gpu})", flush=True)
 
 
 def _numel(state_dict: dict) -> int:
@@ -1829,8 +2127,10 @@ def main() -> int:
         took(6)
         phase_export(tmp, gpu, results)
         took(7)
-        phase_train(tmp, gpu, results)
+        teacher = phase_train(tmp, gpu, results)
         took(8)
+        phase_ffhq(tmp, gpu, teacher)
+        took(9)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

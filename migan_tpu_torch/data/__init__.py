@@ -1,2 +1,3 @@
 """Host-side data handling of the port: the demo's image and mask IO, the
-free-form mask generator and the evaluation's batch loader."""
+free-form mask generators (PIL, and the native C++ rasterizer), the
+training datasets (Places2, FFHQ) and the batch loaders."""

@@ -13,7 +13,7 @@ import numpy as np
 import PIL.Image
 
 from .factory import ds_base, regdataset, regformat, regloader
-from .masks import RandomMask
+from .masks import RandomMask, mask_drawer
 
 PIL.Image.MAX_IMAGE_PIXELS = None
 
@@ -152,9 +152,9 @@ class FreeFormMaskFormatter:
     the formatter of the shipped train and val configs (reference
     ds_places2.py:187-206, configs/dataset/places2.yaml).
 
-    mask_backend: 'pil', the reference's generator (`data/masks.py`).
-    'native', the JAX package's C++ rasterizer of the same algorithm, is
-    not in the port yet (ROADMAP Queue 1) and raises.
+    mask_backend: 'pil', the reference's generator (`data/masks.py`);
+    'native', the C++ rasterizer of the same algorithm
+    (`data/fast_masks.py`), the JAX package's fast masks, bit for bit.
 
     Flips and masks draw from `rng`: the DataLoader's per-item
     RandomState in its seed mode, else the global np.random stream.
@@ -162,12 +162,7 @@ class FreeFormMaskFormatter:
 
     def __init__(self, random_flip=True, resolution=512, hole_range=(0, 1),
                  mask_backend="pil"):
-        if mask_backend != "pil":
-            raise NotImplementedError(
-                f"FreeFormMaskFormatter: mask_backend {mask_backend!r} is "
-                "not in the port; the native mask rasterizer "
-                "(data/fast_masks.py with native/maskgen.cpp) is ROADMAP "
-                "Queue 1. Use mask_backend: pil.")
+        self.draw_mask = mask_drawer(mask_backend)
         self.random_flip = random_flip
         self.resolution = resolution
         self.hole_range = tuple(hole_range)
@@ -185,6 +180,6 @@ class FreeFormMaskFormatter:
                 element[f"_resized_{s}"] = x
         if self.random_flip and rng.rand() < 0.5:
             x = x[:, ::-1]
-        mask = RandomMask(s, self.hole_range, rng=rng)
+        mask = self.draw_mask(s, self.hole_range, rng=rng)
         # astype copies: callers never alias the cached array
         return x.astype(np.float32), mask, element["unique_id"]

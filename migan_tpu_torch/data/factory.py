@@ -41,13 +41,11 @@ def get_dataset(cfg: Dict[str, Any]):
     """A dataset from its config dict (reference ds_base.py:62-90): `type`
     and the dataset's own args; `loader` a list of {type, args},
     `formatter` a {type, args}."""
-    from . import ds_places2  # noqa: F401  (registers its classes)
+    from . import ds_ffhq, ds_places2  # noqa: F401  (register classes)
 
     if cfg["type"] not in _DATASETS:
-        raise NotImplementedError(
-            f"dataset type {cfg['type']!r} is not in the port (it has "
-            f"{sorted(_DATASETS)}); the FFHQ datasets are ROADMAP Queue 1 "
-            "of the port")
+        raise ValueError(f"unknown dataset type {cfg['type']!r} (known: "
+                         f"{sorted(_DATASETS)})")
     return _DATASETS[cfg["type"]](cfg)
 
 

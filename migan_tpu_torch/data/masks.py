@@ -117,3 +117,18 @@ def RandomMask(s, hole_range=(0, 1), rng=np.random):
 def random_mask_uint8(s, hole_range=(0, 1), rng=np.random) -> np.ndarray:
     """255 = known, 0 = hole (reference evaluate_fid_lpips.py:121 flavour)."""
     return (RandomMask(s, hole_range, rng) * 255).astype(np.uint8)
+
+
+def mask_drawer(backend: str):
+    """The mask function of a formatter's `mask_backend`, called as
+    f(s, hole_range, rng=rng): 'pil', the reference's generator above;
+    'native', the C++ rasterizer of the same algorithm
+    (`data/fast_masks.py`, other pixels for the same RNG)."""
+    if backend == "pil":
+        return RandomMask
+    if backend == "native":
+        from .fast_masks import fast_random_mask
+
+        return fast_random_mask
+    raise ValueError(f"mask_backend must be 'pil' or 'native', got "
+                     f"{backend!r}")

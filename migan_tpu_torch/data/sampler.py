@@ -133,14 +133,18 @@ class DataLoader:
                     q.put(None)
                     return
                 seq, (t0, idxs) = job
-                if self.seed is None:
-                    items = [self.dataset[i] for i in idxs]
-                else:
-                    items = [self.dataset.__getitem__(
-                        i, rng=_item_rng(self.seed,
-                                         self.start_position + t0 + j))
-                        for j, i in enumerate(idxs)]
-                q.put((seq, collate(items)))
+                try:
+                    if self.seed is None:
+                        items = [self.dataset[i] for i in idxs]
+                    else:
+                        items = [self.dataset.__getitem__(
+                            i, rng=_item_rng(self.seed,
+                                             self.start_position + t0 + j))
+                            for j, i in enumerate(idxs)]
+                    q.put((seq, collate(items)))
+                except Exception as e:      # re-raised by the consumer
+                    q.put(e)
+                    return
 
         threads = [threading.Thread(target=worker, daemon=True)
                    for _ in range(self.num_workers)]
@@ -160,6 +164,8 @@ class DataLoader:
                 if item is None:
                     finished += 1
                     continue
+                if isinstance(item, Exception):
+                    raise item
                 seq, batch = item
                 pending[seq] = batch
         finally:

@@ -1,14 +1,22 @@
-"""InceptionV3 feature extractor for FID, the pytorch_fid flavor of the
-standalone evaluation (port of `migan_tpu/evalx/inception.py`; reference
-scripts/evaluate_fid_lpips.py:216-218), NHWC in, [N, 2048] pool features
-out.
+"""InceptionV3 feature extractor for FID in both of the reference's
+flavors (port of `migan_tpu/evalx/inception.py`), NHWC in, [N, 2048]
+pool features out. The two flavors share the backbone (pytorch_fid's
+FIDInception* classes are a port of the TF graph NVIDIA's detector is
+translated from) and differ in input contract, resize and weight names:
 
-`inception_apply`: input in [0, 1], resized to 299 x 299 bilinear, scaled
-to [-1, 1]. The resize is the JAX package's, `jax.image.resize(...,
-"bilinear")`, which antialiases when it shrinks (`ops/resize.py`); at a
-512 input this is not what pytorch_fid computes (it does not antialias),
-but the port is held against the JAX package. The training-time NVIDIA
-TorchScript flavor comes with the trainer, which is its only caller.
+- pytorch_fid, the standalone evaluation's detector (reference
+  scripts/evaluate_fid_lpips.py:216-218), `inception_apply`: input in
+  [0, 1], resized to 299 x 299 bilinear, scaled to [-1, 1]. The resize is
+  the JAX package's, `jax.image.resize(..., "bilinear")`, which
+  antialiases when it shrinks (`ops/resize.py`); at a 512 input this is
+  not what pytorch_fid computes (it does not antialias), but the port is
+  held against the JAX package. Torchvision weight names.
+- nvidia_tf, the training-time detector (reference
+  frechet_inception_distance.py:25-29, NVIDIA's TorchScript translation
+  of the TF inception-2015-12-05 graph), `inception_apply_nvidia`: input
+  in [0, 255], TF1's legacy bilinear resize to 299 (`tf_resize_bilinear`),
+  then (x - 128) / 128. TF tower weight names
+  (`import_inception_tf_names`).
 
 The FID variant of InceptionV3 (avg-pool branches with
 count_include_pad=False, a max-pool branch in Mixed_7c). BatchNorm is
@@ -20,7 +28,8 @@ runs this in XLA, outside any Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+import zipfile
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -241,6 +250,59 @@ def inception_apply(model: InceptionV3, x: torch.Tensor, *,
     return model(x)
 
 
+def tf_resize_bilinear(x: torch.Tensor, out_h: int, out_w: int
+                       ) -> torch.Tensor:
+    """TF1's legacy ``resize_bilinear(align_corners=False)``, NHWC: source
+    coordinate dst * (in / out) with no half-pixel offset, neighbours
+    clamped to the border (the resize baked into NVIDIA's TorchScript
+    detector by its affine_grid / grid_sample). Neither `F.interpolate`
+    mode computes it; this is the JAX package's separable gather and
+    lerp, in x's dtype."""
+
+    def axis(in_size, out_size):
+        src = torch.arange(out_size, dtype=x.dtype, device=x.device) * (
+            in_size / out_size)
+        i0 = torch.floor(src)
+        frac = src - i0
+        i0 = i0.long().clamp(0, in_size - 1)
+        return i0, (i0 + 1).clamp(max=in_size - 1), frac
+
+    _, h, w, _ = x.shape
+    if h != out_h:
+        i0, i1, f = axis(h, out_h)
+        f = f[None, :, None, None]
+        x = x[:, i0] * (1 - f) + x[:, i1] * f
+    if w != out_w:
+        j0, j1, f = axis(w, out_w)
+        f = f[None, None, :, None]
+        x = x[:, :, j0] * (1 - f) + x[:, :, j1] * f
+    return x
+
+
+@torch.no_grad()
+def inception_apply_nvidia(model: InceptionV3, x: torch.Tensor
+                           ) -> torch.Tensor:
+    """The training-time detector's contract: x NHWC float (or uint8) in
+    [0, 255] -> [N, 2048] pool features (float32)."""
+    x = tf_resize_bilinear(x.to(torch.float32), 299, 299)
+    return model((x - 128.0) / 128.0)
+
+
+def make_detector(model: InceptionV3, flavor: str = "pytorch_fid"
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The metric stack's detector for either flavor: NHWC float in
+    [0, 1] -> [N, 2048] features. nvidia_tf first quantizes to the uint8
+    grid, floor(x * 255 + 0.5), as the reference casts composites to
+    uint8 before its TorchScript detector (metric_utils.py:40-51), so that
+    numbers match the reference's training logs."""
+    if flavor == "pytorch_fid":
+        return lambda x: inception_apply(model, x)
+    if flavor == "nvidia_tf":
+        return lambda x: inception_apply_nvidia(
+            model, torch.floor(x.clamp(0.0, 1.0) * 255.0 + 0.5))
+    raise ValueError(f"unknown detector flavor {flavor!r}")
+
+
 # ---------------------------------------------------------------------------
 # Weight import, random init
 # ---------------------------------------------------------------------------
@@ -248,6 +310,10 @@ def inception_apply(model: InceptionV3, x: torch.Tensor, *,
 def _fold(f: Mapping[str, np.ndarray], unit: Unit, where: str) -> None:
     """Load conv + BatchNorm arrays into a folded unit (numpy float32
     arithmetic, as the JAX importers)."""
+    missing = {"conv.weight", "bn.bias", "bn.running_mean",
+               "bn.running_var"} - set(f)
+    if missing:
+        raise ValueError(f"{where}: no {sorted(missing)} in the state_dict")
     w = np.asarray(f["conv.weight"], np.float32)
     if tuple(w.shape) != tuple(unit.weight.shape):
         raise ValueError(f"{where}: kernel {w.shape} != expected "
@@ -287,6 +353,129 @@ def import_inception_state_dict(sd: Mapping[str, np.ndarray]) -> InceptionV3:
     return model
 
 
+# TF graph unit -> torchvision unit path. NVIDIA's detector keeps the TF
+# graph's tower names; `_fold` checks each kernel's shape against the
+# unit's, so a wrong orientation here fails on import.
+_TF_BLOCKS = {"mixed": ("Mixed_5b", "A"), "mixed_1": ("Mixed_5c", "A"),
+              "mixed_2": ("Mixed_5d", "A"), "mixed_3": ("Mixed_6a", "B"),
+              "mixed_4": ("Mixed_6b", "C"), "mixed_5": ("Mixed_6c", "C"),
+              "mixed_6": ("Mixed_6d", "C"), "mixed_7": ("Mixed_6e", "C"),
+              "mixed_8": ("Mixed_7a", "D"), "mixed_9": ("Mixed_7b", "E"),
+              "mixed_10": ("Mixed_7c", "E")}
+_TF_BRANCHES = {
+    "A": {"conv": "branch1x1", "tower.conv": "branch5x5_1",
+          "tower.conv_1": "branch5x5_2", "tower_1.conv": "branch3x3dbl_1",
+          "tower_1.conv_1": "branch3x3dbl_2",
+          "tower_1.conv_2": "branch3x3dbl_3", "tower_2.conv": "branch_pool"},
+    "B": {"conv": "branch3x3", "tower.conv": "branch3x3dbl_1",
+          "tower.conv_1": "branch3x3dbl_2", "tower.conv_2": "branch3x3dbl_3"},
+    "C": {"conv": "branch1x1", "tower.conv": "branch7x7_1",
+          "tower.conv_1": "branch7x7_2", "tower.conv_2": "branch7x7_3",
+          "tower_1.conv": "branch7x7dbl_1", "tower_1.conv_1": "branch7x7dbl_2",
+          "tower_1.conv_2": "branch7x7dbl_3",
+          "tower_1.conv_3": "branch7x7dbl_4",
+          "tower_1.conv_4": "branch7x7dbl_5", "tower_2.conv": "branch_pool"},
+    "D": {"tower.conv": "branch3x3_1", "tower.conv_1": "branch3x3_2",
+          "tower_1.conv": "branch7x7x3_1", "tower_1.conv_1": "branch7x7x3_2",
+          "tower_1.conv_2": "branch7x7x3_3",
+          "tower_1.conv_3": "branch7x7x3_4"},
+    "E": {"conv": "branch1x1", "tower.conv": "branch3x3_1",
+          "tower.mixed.conv": "branch3x3_2a",
+          "tower.mixed.conv_1": "branch3x3_2b",
+          "tower_1.conv": "branch3x3dbl_1", "tower_1.conv_1": "branch3x3dbl_2",
+          "tower_1.mixed.conv": "branch3x3dbl_3a",
+          "tower_1.mixed.conv_1": "branch3x3dbl_3b",
+          "tower_2.conv": "branch_pool"},
+}
+TF_UNITS = {"conv": "Conv2d_1a_3x3", "conv_1": "Conv2d_2a_3x3",
+            "conv_2": "Conv2d_2b_3x3", "conv_3": "Conv2d_3b_1x1",
+            "conv_4": "Conv2d_4a_3x3",
+            **{f"{tf}.{sub}": f"{ours}.{branch}"
+               for tf, (ours, kind) in _TF_BLOCKS.items()
+               for sub, branch in _TF_BRANCHES[kind].items()}}
+
+
+def import_inception_tf_names(sd: Mapping[str, np.ndarray]) -> InceptionV3:
+    """NVIDIA's TorchScript detector's (TF-named) state_dict -> folded
+    `InceptionV3`: keys like 'layers.mixed_4.tower.conv_1.conv.weight'
+    and '...{bn,batchnorm}.{weight,bias,running_mean,running_var}' (the
+    'layers.' prefix optional, as is the BatchNorm scale: the TF 2015
+    graph's batchnorm has beta only). The classifier head ('output.*') is
+    ignored: FID reads pool features."""
+    units: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in sd.items():
+        k = key[len("layers."):] if key.startswith("layers.") else key
+        if k.startswith("output.") or "num_batches" in k:
+            continue
+        *unit, mod, leaf = k.split(".")
+        if mod in ("bn", "batchnorm"):
+            field = "bn." + leaf
+        elif mod == "conv" and leaf == "weight" and np.ndim(val) == 4:
+            field = "conv.weight"
+        else:
+            raise ValueError(f"unrecognized detector key layout: {key!r}")
+        units.setdefault(".".join(unit), {})[field] = np.asarray(val)
+    if set(units) != set(TF_UNITS):
+        raise ValueError(f"state_dict units differ from the TF graph's: "
+                         f"{sorted(set(units) ^ set(TF_UNITS))[:8]}")
+    model = InceptionV3()
+    mine = model.units()
+    for tf_unit, f in units.items():
+        _fold(f, mine[TF_UNITS[tf_unit]], tf_unit)
+    return model
+
+
+def _is_torchscript(path: str) -> bool:
+    """A TorchScript archive: a zip with a `<name>/constants.pkl` entry."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        return any(n.endswith("/constants.pkl") for n in z.namelist())
+
+
+def _torchscript_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """The state_dict of a TorchScript archive as numpy arrays; only the
+    weights are read, the scripted forward never runs."""
+    mod = torch.jit.load(path, map_location="cpu")
+    return {k: v.detach().cpu().numpy() for k, v in mod.state_dict().items()}
+
+
+def import_inception_torchscript(path: str) -> InceptionV3:
+    """NVIDIA's TorchScript detector file (inception-2015-12-05.pt,
+    reference metric_utils.py:40-51) -> folded `InceptionV3`."""
+    return import_inception_tf_names(_torchscript_state_dict(path))
+
+
+def load_inception_weights(path: str, flavor: str = "auto"
+                           ) -> Tuple[InceptionV3, str]:
+    """Detector weights from a file, and the FID flavor they are for
+    ('pytorch_fid' or 'nvidia_tf'), told by their names: torchvision's
+    ('Mixed_5b.branch1x1...') or the TF graph's ('[layers.]mixed_4.
+    tower...', and every TorchScript archive's). The reference's two
+    detectors give different FIDs, so a `flavor` other than 'auto' that
+    the file does not hold raises ValueError."""
+    from ..io.torch_import import load_torch_state_dict
+
+    sd = (_torchscript_state_dict(path) if _is_torchscript(path)
+          else load_torch_state_dict(path))
+    keys = list(sd)
+    has_torchvision = any(k.startswith(("Mixed_", "Conv2d_")) for k in keys)
+    has_tf = any(
+        (k[len("layers."):] if k.startswith("layers.") else k).startswith(
+            ("mixed", "conv"))
+        for k in keys if not k.startswith("output."))
+    if has_torchvision == has_tf:
+        raise ValueError(f"cannot detect the detector layout of {path} "
+                         f"(keys like {keys[:3]})")
+    detected = "nvidia_tf" if has_tf else "pytorch_fid"
+    if flavor not in ("auto", detected):
+        raise ValueError(f"requested flavor {flavor!r} but {path} holds a "
+                         f"{detected!r}-layout state_dict")
+    if detected == "nvidia_tf":
+        return import_inception_tf_names(sd), detected
+    return import_inception_state_dict(sd), detected
+
+
 def from_jax_params(params: Mapping) -> InceptionV3:
     """The JAX package's folded params (numpy or JAX arrays; w HWIO), as
     `inception_init` or its importers give them -> `InceptionV3`."""
@@ -316,11 +505,14 @@ def inception_init(seed: int = 0) -> InceptionV3:
 
 
 @torch.no_grad()
-def seeded_state_dict(seed: int, n_images: int = 4
+def seeded_state_dict(seed: int, n_images: int = 4,
+                      flavor: str = "pytorch_fid"
                       ) -> Dict[str, torch.Tensor]:
-    """A random torchvision-named (pytorch_fid) state_dict from `seed`,
-    for `.pth` files in tests and smoke runs: conv.weight and bn.{weight,
-    bias, running_mean, running_var} per unit.
+    """A random state_dict from `seed`, for `.pth` files in tests and
+    smoke runs: conv.weight and bn.{weight, bias, running_mean,
+    running_var} per unit, under torchvision's names (flavor
+    'pytorch_fid') or the TF graph's, as NVIDIA's detector names them
+    ('nvidia_tf': 'layers.<tf unit>.{conv,bn}.*'), the same weights.
 
     The BatchNorm statistics are those of each unit's conv output on a
     seeded batch of `n_images` 299² noise images, taken unit by unit in
@@ -375,4 +567,13 @@ def seeded_state_dict(seed: int, n_images: int = 4
     for name in _LAST_UNITS:
         for p in ("weight", "bias"):
             sd[f"Mixed_7c.{name}.bn.{p}"] = sd[f"Mixed_7c.{name}.bn.{p}"] * k
-    return sd
+    if flavor == "pytorch_fid":
+        return sd
+    if flavor != "nvidia_tf":
+        raise ValueError(f"unknown detector flavor {flavor!r}")
+    to_tf = {ours: tf for tf, ours in TF_UNITS.items()}
+    out = {}
+    for key, v in sd.items():
+        unit, mod, leaf = key.rsplit(".", 2)
+        out[f"layers.{to_tf[unit]}.{mod}.{leaf}"] = v
+    return out

@@ -3,8 +3,9 @@
 The `.cu` files have plain C entry points. At first use they are compiled
 with nvcc for sm_90a, one nvcc process per file, all started together, and
 linked into one shared library under `build/kernels/` at the repository
-root (listed in `.gitignore`), named by a hash of the sources and flags,
-and loaded with ctypes. Nothing here runs at import time, and
+root (listed in `.gitignore`), named by a hash of the sources and the
+compiler command, under a file lock (`utils/native_build.py`), and
+loaded with ctypes. Nothing here runs at import time, and
 nothing is built for CPU tensors.
 """
 
@@ -12,16 +13,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import subprocess
-import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+
+from ...utils import native_build
 
 _PKG = Path(__file__).resolve().parents[2]           # migan_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -58,23 +59,17 @@ def _sources():
 
 def library_path() -> Path:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"libmigan_kernels_{h.hexdigest()[:16]}.so"
+    return native_build.hashed_path(BUILD_DIR, "migan_kernels",
+                                    [_nvcc(), *NVCC_FLAGS], cu + cuh)
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    Returns the library's path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile the kernels unless a library of the same sources and
+    compiler exists. Returns the library's path."""
     cu, _ = _sources()
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+
+    def compile_into(tmp: str) -> str:
         objs = [os.path.join(tmp, f"{p.stem}.o") for p in cu]
         cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
                  obj] for src, obj in zip(cu, objs)]
@@ -89,8 +84,9 @@ def build() -> Path:
         cmd = [nvcc, *ARCH, "-shared", *objs, "-o", so]
         r = subprocess.run(cmd, capture_output=True, text=True)
         _check(cmd, r.returncode, r.stdout + r.stderr)
-        os.replace(so, out)
-    return out
+        return so
+
+    return native_build.build_once(library_path(), compile_into)
 
 
 def _check(cmd, returncode: int, log: str) -> None:

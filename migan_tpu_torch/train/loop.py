@@ -11,17 +11,23 @@ RNG continues at the same absolute item positions, and each step's noise
 comes from a `torch.Generator` seeded from (seed, absolute step index),
 so a killed and resumed run replays the uninterrupted one.
 
-The training-time metric branch is not in the port yet: with metrics but
-no detector configured it skips, with the JAX package's message; with a
-detector configured it raises.
+The metric branch (reference migan_default.py:462-490): every
+`snapshot.evaluate` ticks (from tick 1) each of `train.metrics` runs on
+`eval.dataset` with the EMA generator, its result goes to
+`metric-<name>.jsonl` under the run directory, the first metric's FID to
+the log and `stats.jsonl` as `Metrics/fid`, and the lowest FID so far is
+kept as the one checkpoint under `weight/best/`. As in the JAX package, a
+resumed run starts with no best FID.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import os
 import os.path as osp
+import shutil
 import time
 from typing import Any, Dict, Optional
 
@@ -143,27 +149,80 @@ def _encode_wire(x: np.ndarray, m: np.ndarray, wire: str):
     return x, m
 
 
-def _build_metric_ctx(cfg: Dict[str, Any]) -> None:
-    """The training-time metric branch (reference migan_default.py:
-    462-490), not in the port yet: with no metric or no eval dataset it is
-    off; with metrics but no detector configured it skips with the JAX
-    package's message; with a detector configured it raises."""
+def _build_metric_ctx(cfg: Dict[str, Any], device) -> Optional[dict]:
+    """The metric branch's detector, dataset and settings (reference
+    migan_default.py:462-490), or None when the experiment configures no
+    metric or no eval dataset, or no detector: `eval.inception_weights`
+    (either FID flavor, told by its weight names; `eval.inception_flavor`
+    to insist on one), else random weights with
+    `eval.allow_random_detector` (the evaluate CLI's
+    --allow-random-detector: the branch runs end to end, its FIDs mean
+    nothing), else it is skipped with a log line saying so."""
     metrics = cfg["train"].get("metrics") or []
     eval_cfg = cfg.get("eval") or {}
     if not metrics or "dataset" not in eval_cfg:
         return None
+    from ..data.factory import get_dataset
+    from ..evalx.inception import (inception_init, load_inception_weights,
+                                   make_detector)
+
     weights = eval_cfg.get("inception_weights")
-    if (weights and osp.isfile(weights)) or \
-            eval_cfg.get("allow_random_detector"):
-        raise NotImplementedError(
-            f"training-time metrics {metrics} need the metric branch "
-            "(evalx/metrics.py, evaluators.py, the NVIDIA Inception flavor), "
-            "which is ROADMAP Queue 1 of the port; set train.metrics=[] to "
-            "train without them")
-    print_log("metrics configured but no inception_weights found — "
-              "skipping metric evaluation (set eval.inception_weights "
-              "or eval.allow_random_detector)")
-    return None
+    if weights and osp.isfile(weights):
+        # the reference's training-time FID uses NVIDIA's TF-named
+        # detector, whose FIDs differ from pytorch_fid's
+        model, flavor = load_inception_weights(
+            weights, eval_cfg.get("inception_flavor", "auto"))
+    elif eval_cfg.get("allow_random_detector"):
+        print_log(f"WARNING: random Inception weights for training-time "
+                  f"metrics (eval.inception_weights: {weights!r}) — FID "
+                  f"values are meaningless (plumbing only)")
+        model, flavor = inception_init(0), "pytorch_fid"
+    else:
+        print_log(f"metrics configured but no inception_weights found "
+                  f"({weights!r}) — skipping metric evaluation (set "
+                  f"eval.inception_weights or eval.allow_random_detector)")
+        return None
+    print_log(f"training-time FID detector flavor: {flavor}")
+    return {"metrics": metrics,
+            "detector": make_detector(model.to(device), flavor),
+            "dataset": get_dataset(eval_cfg["dataset"]),
+            "detector_tag": f"inception-{flavor}",
+            "dataset_tag": eval_cfg["dataset"].get("name", ""),
+            "batch_size": eval_cfg.get("batch_size", 32),
+            "max_items": eval_cfg.get("max_items"), "device": device}
+
+
+def _run_metrics(state: TrainState, ctx: dict, log_dir: str
+                 ) -> Optional[float]:
+    """Runs the configured metrics on the EMA generator (const noise);
+    returns the first metric's FID. The generator is a copy of the EMA,
+    made at the first evaluation of the run and loaded with the EMA's
+    current weights at each, so that evaluation never touches the
+    training state."""
+    from ..evalx import metrics as metric_main
+    from ..models.migan import generator_apply
+
+    if "G" not in ctx:
+        ctx["G"] = copy.deepcopy(state.G_ema).eval().requires_grad_(False)
+    gen = ctx["G"]
+    gen.load_state_dict(state.G_ema.state_dict())
+    fid_value = None
+    for name in ctx["metrics"]:
+        if not metric_main.is_valid_metric(name):
+            print_log(f"unknown metric {name!r}")
+            continue
+        result = metric_main.calc_metric(
+            name, dataset=ctx["dataset"],
+            generator_fn=lambda x: generator_apply(gen, x,
+                                                   noise_mode="const"),
+            detector_fn=ctx["detector"], detector_tag=ctx["detector_tag"],
+            batch_size=ctx["batch_size"], max_items=ctx["max_items"],
+            cache_dir=osp.join(log_dir, "fid-cache"),
+            dataset_tag=ctx["dataset_tag"], device=ctx["device"])
+        metric_main.report_metric(result, run_dir=log_dir)
+        if fid_value is None:
+            fid_value = result["results"].get("fid")
+    return fid_value
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -240,7 +299,8 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
     tick_start_nimg = cur_nimg
     tick_start_time = time.time()
     start_time = tick_start_time
-    _build_metric_ctx(cfg)
+    best_metric = None
+    metric_ctx = _build_metric_ctx(cfg, device)
     ckpt_dir = osp.join(log_dir, "weight")
     drew_init = False
     done = False
@@ -323,6 +383,30 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
                 # composited sheet: known pixels real, the hole generated
                 _save_image_grid(real * m + demo * (1 - m), osp.join(
                     log_dir, f"fakes{tag}_combined.png"))
+
+            if (snapshot.get("evaluate") and metric_ctx is not None
+                    and cur_tick % snapshot["evaluate"] == 0
+                    and cur_tick > 0):
+                fid = _run_metrics(state, metric_ctx, log_dir)
+                if fid is not None:
+                    print_log(f"tick {cur_tick}  Metrics/fid {fid:.3f}")
+                    stats_jsonl.write(json.dumps(
+                        {"tick": cur_tick, "kimg": round(cur_nimg / 1e3, 1),
+                         "Metrics/fid": fid}) + "\n")
+                    stats_jsonl.flush()
+                    if tb is not None:
+                        tb.add_scalar("Metrics/fid", fid, cur_nimg)
+                if fid is not None and (best_metric is None
+                                        or fid < best_metric):
+                    # the reference keeps one best snapshot, the lowest
+                    # FID (migan_default.py:139-146)
+                    best_metric = fid
+                    best_dir = osp.join(ckpt_dir, "best")
+                    path = ckpt.save(best_dir, batch_idx, state)
+                    for d in os.listdir(best_dir):
+                        if d.startswith("step_") and d != osp.basename(path):
+                            shutil.rmtree(osp.join(best_dir, d))
+                    print_log(f"new best FID {fid:.3f}: {path}")
 
             if snapshot.get("checkpoint") and (
                     cur_tick % snapshot["checkpoint"] == 0 or done):

@@ -4,8 +4,9 @@ through the kernel chain, the demo's file readers and writer on a PNG, the
 app pipeline, a served request in each of the server's modes and the
 evaluation CLI, the export CLI (training weights folded, the kernel
 chain exported), the create_pipeline CLI (a bucket and the dynamic
-program) and one step of the training CLI, and finds neither in
-sys.modules. `chip_smoke.py` names neither
+program), one step of the training CLI, a native mask, an ffhqzip
+item and an in-loop metric evaluation with a random detector, and finds
+neither in sys.modules. `chip_smoke.py` names neither
 in any of its imports, and imports the demo, serve, evaluate, export and
 create_pipeline entry points."""
 
@@ -140,10 +141,41 @@ with tempfile.TemporaryDirectory() as d:
     from migan_tpu_torch.cli import train
     assert train.main(["--experiment", "t", "--config-root", f"{d}/cfg",
                        "--device", "cpu", "--max-steps", "1"]).step == 1
+
+    # one native mask, one ffhqzip item (with a native mask), and one
+    # metric evaluation with a random detector; the detector's features
+    # are cut to 64 so that FID's matrix square root stays quick here
+    import io, shutil, zipfile
+    from migan_tpu_torch.data.factory import get_dataset
+    from migan_tpu_torch.evalx import inception, metrics
+    native = shutil.which("g++") is not None
+    if native:
+        from migan_tpu_torch.data.fast_masks import fast_random_mask
+        assert fast_random_mask(32, seed=0).shape == (32, 32)
+    with zipfile.ZipFile(f"{d}/ffhq256x256.zip", "w") as z:
+        for i in range(4):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 256, (32, 32, 3),
+                                        np.uint8)).save(buf, format="PNG")
+            z.writestr(f"{i:05d}.png", buf.getvalue())
+    ds = get_dataset({"name": "z", "type": "ffhqzip", "root_dir": d,
+                      "mode": "val256", "loader": [{"type": "ZipLoader"}],
+                      "formatter": {"type": "RandomMaskFormatter", "args": {
+                          "mask_backend": "native" if native else "pil"}}})
+    x, m, uid = ds[0]
+    assert x.shape == (32, 32, 3) and m.shape == (32, 32) and uid == "00000"
+    det = inception.make_detector(inception.inception_init(0), "nvidia_tf")
+    np.random.seed(0)
+    r = metrics.calc_metric(
+        "fid10k_full_inpainting", dataset=ds, max_items=4, batch_size=2,
+        generator_fn=lambda x: migan.generator_apply(tg, x,
+                                                     noise_mode="const"),
+        detector_fn=lambda x: det(x)[:, :64], cache_dir=f"{d}/fid-cache")
+    assert np.isfinite(r["results"]["fid"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 57 else 0)
+sys.exit(1 if bad or len(names) < 62 else 0)
 """
 
 

@@ -6,8 +6,8 @@ banks that the JAX registry builds has the JAX parameter count (the port
 on the meta device, JAX by `jax.eval_shape`); the Places2 dataset with
 `FreeFormMaskFormatter` and the `InfiniteSampler` give bit-equal streams
 for the same seed, on seeded PNGs written here; the loader's
-`start_position` continues a stream; `mask_backend: native` raises.
-All comparisons exact.
+`start_position` continues a stream; `mask_backend: native` gives the
+JAX package's items too. All comparisons exact.
 """
 
 import os
@@ -198,10 +198,51 @@ def test_loader_start_position_continues_the_stream(places2_dir):
 
 
 def test_native_mask_backend_raises(places2_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfactory.get_dataset(_places_cfg(places2_dir, mask_backend="native"))
+    """`mask_backend: native` (the C++ rasterizer) gives the JAX
+    package's items bit for bit for the same per-item RNG; a backend
+    that does not exist raises."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native rasterizer cannot be built here")
+    cfg = _places_cfg(places2_dir, mask_backend="native")
+    got_ds, want_ds = tfactory.get_dataset(cfg), jfactory.get_dataset(cfg)
+    for pos in range(6):
+        x, m, uid = got_ds.__getitem__(pos, rng=tsampler._item_rng(5, pos))
+        xw, mw, uw = want_ds.__getitem__(pos,
+                                         rng=jsampler._item_rng(5, pos))
+        assert uid == uw
+        np.testing.assert_array_equal(x, xw)
+        np.testing.assert_array_equal(m, mw)
+    with pytest.raises(ValueError, match="mask_backend"):
+        tfactory.get_dataset(_places_cfg(places2_dir, mask_backend="cuda"))
 
 
-def test_unknown_dataset_type_raises():
-    with pytest.raises(NotImplementedError, match="FFHQ"):
-        tfactory.get_dataset({"type": "ffhq", "root_dir": "x"})
+def test_unknown_dataset_type_raises(tmp_path):
+    """The FFHQ types are registered (an ffhqsimple tree loads); a type
+    that exists in neither package raises."""
+    d = tmp_path / "ffhq256x256" / "00000"
+    d.mkdir(parents=True)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(d / "00000.png")
+    ds = tfactory.get_dataset({"type": "ffhqsimple",
+                               "root_dir": str(tmp_path), "mode": "train256"})
+    assert len(ds) == 1 and ds[0]["unique_id"] == "00000"
+    with pytest.raises(ValueError, match="celebahq"):
+        tfactory.get_dataset({"type": "celebahq", "root_dir": "x"})
+
+
+def test_data_loader_raises_a_worker_error():
+    """An item that raises in a loader thread raises in the consumer,
+    rather than leaving it waiting for a batch that never comes."""
+
+    class Faulty:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            if i == 5:
+                raise KeyError("item 5")
+            return (np.zeros(2, np.float32),)
+
+    with pytest.raises(KeyError, match="item 5"):
+        list(tsampler.DataLoader(Faulty(), batch_size=2, num_workers=3))

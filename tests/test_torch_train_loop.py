@@ -4,7 +4,8 @@ the port's checkpoint: a save/restore round trip with the Adam moments,
 `latest` skipping a torn temporary directory, `extract_field`, the JAX
 package's (orbax) checkpoint refused; `train_stage` at 16 px writing
 stats.jsonl, grids and checkpoints; a run stopped and resumed equal to
-the uninterrupted run bit for bit; the metric branch's skip and refusal;
+the uninterrupted run bit for bit; the metric branch's skip, its
+refusal of a detector of the wrong flavor, and its random-detector opt-in;
 the CLI on a config root of its own, on the CPU by `--device cpu` only.
 """
 
@@ -20,6 +21,7 @@ from PIL import Image
 
 from migan_tpu_torch.cli import export as export_cli
 from migan_tpu_torch.cli import train as train_cli
+from migan_tpu_torch.evalx.inception import seeded_state_dict
 from migan_tpu_torch.models import migan as tm
 from migan_tpu_torch.train import checkpoint as ckpt
 from migan_tpu_torch.train import loop
@@ -185,15 +187,28 @@ def test_train_stage_resume_bit_equal(smoke_cfg, tmp_path):
     _equal(state_c.state_dict(), state_a.state_dict())
 
 
-def test_metric_branch_skips_or_refuses(capsys):
+def test_metric_branch_skips_or_refuses(capsys, tmp_path):
+    """No detector configured: skipped with the JAX package's message.
+    A detector weight file of the other flavor than
+    `eval.inception_flavor` demands: refused. Random weights by opt-in:
+    the branch is built."""
     cfg = {"train": {"metrics": ["fid10k_full_inpainting"]},
-           "eval": {"dataset": {"type": "places2"}}}
-    assert loop._build_metric_ctx(cfg) is None
+           "eval": {"dataset": {"type": "places2", "root_dir": str(tmp_path),
+                                "mode": "train256"}}}
+    assert loop._build_metric_ctx(cfg, "cpu") is None
     assert "skipping metric evaluation" in capsys.readouterr().out
-    cfg["eval"]["allow_random_detector"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop._build_metric_ctx(cfg)
-    assert loop._build_metric_ctx({"train": {"metrics": []}}) is None
+    path = tmp_path / "pt_inception.pth"
+    torch.save(seeded_state_dict(0, n_images=1), path)
+    cfg["eval"].update(inception_weights=str(path),
+                       inception_flavor="nvidia_tf")
+    with pytest.raises(ValueError, match="flavor"):
+        loop._build_metric_ctx(cfg, "cpu")
+    cfg["eval"] = {"dataset": cfg["eval"]["dataset"],
+                   "allow_random_detector": True}
+    ctx = loop._build_metric_ctx(cfg, "cpu")
+    assert ctx["metrics"] == ["fid10k_full_inpainting"]
+    assert ctx["detector_tag"] == "inception-pytorch_fid"
+    assert loop._build_metric_ctx({"train": {"metrics": []}}, "cpu") is None
 
 
 def test_export_cli_reads_the_port_checkpoint(tmp_path):
