@@ -50,7 +50,11 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      that within the bf16 bound; prints img/s and the share of the loop
      spent waiting for the loader in a window of 128 images for both
      dtypes, and one batch's device work timed alone beside the loop's
-     time per batch;
+     time per batch; then runs the CLI with `--data-parallel` as the one
+     rank of `python -m torch.distributed.run --standalone
+     --nproc-per-node 1` (NCCL on cuda:0) on the first 32 items and holds
+     its all-gathered per-item LPIPS and activations within 1e-5
+     relative L2 of the in-process run's, with its launches;
   7. exports: seeded migan-512 training weights (depthwise, 9 re-param
      tensors, non-zero noise strengths) through the export CLI
      (`migan_tpu_torch.cli.export`, `--device cuda`, 4 seeded images):
@@ -72,13 +76,15 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      Co-Mod-GAN-256 teacher, R1 at step 0, `--max-steps 12`, a
      checkpoint every 2 ticks of 4 steps) in a process of its own with
      deterministic algorithms; a second run SIGKILLed after its first
-     checkpoint and resumed to step 12, its final state held bit-equal to
-     the first run's; one step at batch 2 on the card against the CPU
-     from the same state and noise; each phase's device ms with default
-     and with deterministic algorithms, the peak memory of a batch-32
-     step, and the device's busy share in one deterministic step under
-     torch.profiler; the export CLI on the checkpoint's
-     `params_G_ema`. Prints s/kimg from the tick lines;
+     checkpoint and resumed to step 12 as the one rank of
+     `torch.distributed.run` (an NCCL group of one rank: the gradients'
+     and stats' all-reduces run on the card), its final state held
+     bit-equal to the first run's; one step at batch 2 on the card
+     against the CPU from the same state and noise; each phase's device
+     ms with default and with deterministic algorithms, the peak memory
+     of a batch-32 step, and the device's busy share in one
+     deterministic step under torch.profiler; the export CLI on the
+     checkpoint's `params_G_ema`. Prints s/kimg from the tick lines;
   9. trains the published FFHQ experiment with its in-loop FID: the
      training CLI (`--experiment migan_ffhq256`, full width, batch 32,
      the config's losses, phase 8's teacher, default algorithms) in a
@@ -999,6 +1005,11 @@ def phase_evaluate(tmp: str, gpu: str, results: dict) -> None:
                                             "--detector-dtype", "bfloat16"]),
                          ("cpu float32", ["--device", "cpu",
                                           "--max-items", "4"])):
+        if label.startswith("cpu"):
+            # the one-rank evaluation's process, mostly host work (process
+            # start-up, the FID's matrix square root), runs beside the CPU
+            # run, which times nothing
+            one_rank = _start_one_rank_evaluate(tmp, argv)
         details = {}
         reset_launch_counts()
         fid, lpips_mean = evaluate.main(argv + extra, details=details)
@@ -1074,6 +1085,97 @@ def phase_evaluate(tmp: str, gpu: str, results: dict) -> None:
     check(r_lp < BF16_LPIPS_RTOL, "evaluate: bf16 LPIPS beyond its bound")
     check(r_acts < BF16_ACTS_RTOL,
           "evaluate: bf16 Inception activations beyond their bound")
+    _finish_one_rank_evaluate(one_rank, card, gpu, results)
+
+
+def _start_one_rank_evaluate(tmp: str, argv: list) -> dict:
+    """Starts the evaluation CLI with --data-parallel as the one rank of
+    `torch.distributed.run` on the first DP_EVAL_ITEMS items, in a
+    session of its own that is killed at exit if it is still running."""
+    import atexit
+    import signal
+    import subprocess
+
+    run = {"out": os.path.join(tmp, "eval_dp.npz"),
+           "log": os.path.join(tmp, "eval_dp.log"),
+           "t0": time.perf_counter()}
+    cmd = (_one_rank(tmp, "eval_launcher", EVAL_LAUNCHER) + [run["out"]]
+           + argv + ["--device", "cuda", "--data-parallel", "--max-items",
+                     str(DP_EVAL_ITEMS)])
+    with open(run["log"], "w") as log:
+        run["proc"] = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=_repo_env(), stdout=log, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+
+    def kill(proc=run["proc"]):
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    atexit.register(kill)
+    return run
+
+
+def _finish_one_rank_evaluate(run: dict, inproc: dict, gpu: str,
+                              results: dict) -> None:
+    """Waits for `_start_one_rank_evaluate`'s run; holds its all-gathered
+    (zipzapped) per-item LPIPS and activations against the in-process
+    run's on the same items, and counts its launches."""
+    import numpy as np
+
+    rc = run["proc"].wait(timeout=600)
+    wall = time.perf_counter() - run["t0"]
+    with open(run["log"]) as f:
+        log = f.read()
+    check(rc == 0, f"phase6 data-parallel evaluate: exit {rc}\n"
+          f"{log[-4000:]}")
+    check(ONE_RANK_LINE in log, f"phase6 data-parallel evaluate: no "
+          f"{ONE_RANK_LINE!r} line")
+    got = np.load(run["out"])
+    counts = json.loads(str(got["counts"]))
+    record_path(results, "evaluate --data-parallel, 1 NCCL rank", counts)
+    forwards = -(-DP_EVAL_ITEMS // EVAL_BATCH) + 1
+    want = {k: v * forwards for k, v in EXPECTED_LAUNCHES[512].items()}
+    check(counts == want, f"phase6 data-parallel evaluate: launches "
+          f"{counts}, expected {want}")
+    n = DP_EVAL_ITEMS
+    lp = got["lpips"]
+    rel_lp = float(np.linalg.norm(lp - inproc["lpips"][:n])
+                   / np.linalg.norm(inproc["lpips"][:n]))
+    rel_acts = max(float((np.linalg.norm(got[k] - inproc[k][:n], axis=1)
+                          / np.linalg.norm(inproc[k][:n], axis=1)).max())
+                   for k in ("real_acts", "fake_acts"))
+    print(f"phase6 evaluate --data-parallel as the one rank of "
+          f"torch.distributed.run ({ONE_RANK_LINE}), first {n} items: "
+          f"FID {float(got['fid']):.6f}; all-gathered per-item LPIPS "
+          f"relative L2 {rel_lp:.3e}, Inception activations relative L2 "
+          f"max {rel_acts:.3e} against the in-process run (limit "
+          f"{DP_EVAL_RTOL}); launches {counts}; {wall:.1f} s wall, "
+          f"process start to exit, beside the CPU run ({gpu})", flush=True)
+    check(lp.shape == (n,) and max(rel_lp, rel_acts) <= DP_EVAL_RTOL,
+          "phase6 data-parallel evaluate differs from the in-process run")
+
+
+# The evaluation CLI as the one rank of an NCCL group (torch.distributed
+# .run): argv[1] is the .npz it writes (FID, per-item LPIPS, activations,
+# the kernels' launches), the rest the CLI's arguments.
+EVAL_LAUNCHER = r"""
+import json, os, sys
+import numpy as np
+from migan_tpu_torch.cli import evaluate
+from migan_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+assert os.environ["WORLD_SIZE"] == "1"
+details = {}
+reset_launch_counts()
+fid, _ = evaluate.main(sys.argv[2:], details=details)
+np.savez(sys.argv[1], fid=fid, lpips=details["lpips"],
+         real_acts=details["real_acts"], fake_acts=details["fake_acts"],
+         counts=json.dumps(launch_counts()))
+"""
+# Its items (the first of phase 6's) and its bound against the in-process
+# run: the same kernels and detectors on the same inputs, in another
+# process.
+DP_EVAL_ITEMS, DP_EVAL_RTOL = 32, 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -1398,6 +1500,8 @@ STEP_LOSSES = ("Loss/G/loss", "Loss/G/kd_l1_image_level_loss", "Loss/D/loss",
 PHASE_REPS = 3            # timed steps after 2 warm-up steps
 STEP_WINDOW = "migan_train_step"
 
+# The start line of a port CLI run as the one rank of an NCCL group
+ONE_RANK_LINE = "distributed: backend nccl, world 1, rank 0, device cuda:0"
 # The training CLI in a process of its own, with deterministic algorithms
 # (set here, by the launcher, not by a flag of the CLI), so that a killed
 # and resumed run can be held bit-equal to the uninterrupted one.
@@ -1422,14 +1526,35 @@ def _train_argv(teacher: str, log_root: str, signature: str) -> list:
             "--set", f"train.snapshot.checkpoint={CKPT_TICKS}"]
 
 
-def _train_process(argv: list, out_path: str):
+def _one_rank(tmp: str, name: str, source: str) -> list:
+    """The command that runs `source`, written to `<tmp>/<name>.py`, as
+    the one rank of `python -m torch.distributed.run --standalone
+    --nproc-per-node 1` (the port's CLIs then join an NCCL group of one
+    rank on cuda:0); the repo on PYTHONPATH."""
+    path = os.path.join(tmp, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(source)
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", path]
+
+
+def _repo_env(**extra) -> dict:
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=repo + (os.pathsep + path if path
+                                               else ""), **extra)
+
+
+def _train_process(argv: list, out_path: str, launcher=None):
+    """The training CLI in a process of its own, or under `launcher` (a
+    command from `_one_rank`)."""
     import subprocess
 
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    cmd = (launcher or [sys.executable, "-c", TRAIN_LAUNCHER]) + argv
     out = open(out_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-c", TRAIN_LAUNCHER, *argv],
-        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=_repo_env(CUBLAS_WORKSPACE_CONFIG=":4096:8"),
         stdout=out, stderr=subprocess.STDOUT, text=True)
     return proc, out
 
@@ -1761,18 +1886,27 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
     resumed_from = ckpt.latest(os.path.join(run_b, "weight"))
     root_c = os.path.join(tmp, "train_c")
     out_c = os.path.join(tmp, "train_c.log")
+    t0 = time.perf_counter()
     proc, out = _train_process(
         _train_argv(teacher_path, root_c, "c")
-        + ["--resume-path", os.path.join(run_b, "weight")], out_c)
+        + ["--resume-path", os.path.join(run_b, "weight")], out_c,
+        launcher=_one_rank(tmp, "train_launcher", TRAIN_LAUNCHER))
     _check_train_run(proc, out, out_c, "resumed run")
+    wall_c = time.perf_counter() - t0
+    with open(out_c) as f:
+        log_c = f.read()
+    check(ONE_RANK_LINE in log_c, f"phase8 run c: no {ONE_RANK_LINE!r} "
+          f"line\n{log_c[-2000:]}")
     final_c = ckpt.latest(os.path.join(_run_dir(root_c), "weight"))
     diff = _state_equal(state_a, ckpt.load(final_c))
     check(not diff, f"phase8: the resumed run differs from the "
           f"uninterrupted one at {diff[:10]}")
     print(f"phase8 run b SIGKILLed with {killed_at} on disk, resumed from "
-          f"{os.path.basename(resumed_from)} to step {TRAIN_STEPS}: its "
-          f"final state (G, D, EMA, both Adam states, step, nimg) equals "
-          f"the uninterrupted run's bit for bit (deterministic "
+          f"{os.path.basename(resumed_from)} to step {TRAIN_STEPS} as one "
+          f"rank of torch.distributed.run ({ONE_RANK_LINE}; gradients "
+          f"and stats through NCCL; {wall_c:.1f} s wall): its final state "
+          f"(G, D, EMA, both Adam states, step, nimg) equals the "
+          f"uninterrupted one-process run's bit for bit (deterministic "
           f"algorithms)", flush=True)
 
     # 3. one step on the card against the CPU; the phases' times

@@ -15,8 +15,16 @@ The protocol is the JAX package's:
   - composite = mask * img + (1 - mask) * output; both metrics on [0, 1]
   - FID from the full activation arrays (np.mean / np.cov, scipy sqrtm)
 
-One process on one device. --data-parallel is refused: sharding over
-several cards waits for the port's data-parallel path.
+Data parallel (`migan_tpu/cli/evaluate.py:180-292`): launched by
+`torch.distributed.run` (``python -m torch.distributed.run
+--nproc-per-node P -m migan_tpu_torch.cli.evaluate ... --data-parallel``),
+the CLI joins the process group (NCCL on `cuda:LOCAL_RANK`, gloo with
+`--device cpu`) and rank p scores items p, p + P, ... (extend-padded to
+an equal count); the per-item LPIPS and activations are all-gathered and
+re-interleaved into item order, rank 0 computes the FID and writes the
+real-activations cache. On-the-fly masks then come from the per-item
+stream at the items' single-process positions (as --num-workers > 1
+gives them). --data-parallel without the launcher's env is refused.
 
 Detector weights are .pth/.pt state_dicts (pytorch_fid InceptionV3, lpips
 alex). --allow-random-detector runs with random detector weights (a
@@ -34,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.masks import random_mask_uint8
 
 DETECTOR_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -71,8 +80,12 @@ def get_args(argv=None):
                    "saves them; later runs skip the real-side detector "
                    "pass. Delete the file when the real set or the "
                    "detector weights change.")
-    p.add_argument("--data-parallel", action="store_true", default=None,
-                   help="not supported by the port yet: refused")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard the items over the ranks of the "
+                   "torch.distributed group (launch with "
+                   "torch.distributed.run); refused without one. Under a "
+                   "launcher the items are sharded whether or not it is "
+                   "given.")
     return p.parse_args(argv)
 
 
@@ -173,27 +186,55 @@ def main(argv=None, details: dict = None):
     from the loop's start to the batch's end, its items, the seconds it
     waited for the loader) ("batches")."""
     args = get_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel: the port evaluates on one "
-                         "device; data-parallel evaluation is not ported "
-                         "yet")
+    device = parallel.maybe_initialize_distributed(args.device)
+    try:
+        return _evaluate(args, device, details)
+    finally:
+        parallel.destroy()
+
+
+def _zipzap(a: np.ndarray, n: int) -> np.ndarray:
+    """Every rank's per-item rows (rank p holds items p, p + P, ...) in
+    item order, the extend padding cut: an all-gather, then the rows
+    re-interleaved."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(
+        parallel.collective_device())
+    g = parallel.all_gather_rows(t).cpu().numpy()
+    g = g.reshape(parallel.world(), *a.shape).swapaxes(0, 1)   # [m, P, ...]
+    return g.reshape(-1, *a.shape[1:])[:n]
+
+
+def _evaluate(args, device: torch.device, details):
+    sharded = parallel.is_initialized()
+    if args.data_parallel and not sharded:
+        raise SystemExit("--data-parallel shards the items over the ranks "
+                         "of a torch.distributed group: launch with python "
+                         "-m torch.distributed.run --nproc-per-node P -m "
+                         "migan_tpu_torch.cli.evaluate ...")
+    world, rank = parallel.world(), parallel.rank()
     np.random.seed(0)
     random.seed(0)
 
-    from ..data.sampler import DataLoader
+    from ..data.sampler import DataLoader, ShardSampler
     from ..evalx.fid import fid_from_feature_arrays
     from .demo import load_model
 
+    print(parallel.describe(device))
     forward, resolution = load_model(args.model_name, args.model_path,
-                                     args.dtype, args.device)
-    device = torch.device(args.device)
+                                     args.dtype, device)
     inception, lp = load_detectors(args, device)
 
     ds = InferenceDataset(args.real_dir, args.mask_dir, resolution)
     n = len(ds) if args.max_items is None else min(len(ds), args.max_items)
-    dl = DataLoader(ds, batch_size=args.batch_size, indices=range(n),
+    indices = (ShardSampler(n, world, rank, shuffle=False,
+                            extend=True).epoch_indices(0) if sharded
+               else range(n))
+    # more than one rank must not draw masks from the global stream: each
+    # would draw the same sequence for other items
+    dl = DataLoader(ds, batch_size=args.batch_size, indices=indices,
                     num_workers=args.num_workers, drop_last=False,
-                    seed=0 if args.num_workers > 1 else None)
+                    seed=0 if args.num_workers > 1 or world > 1 else None,
+                    start_position=rank, position_stride=world)
 
     cache_path = args.real_acts_cache
     cached_real = None
@@ -231,23 +272,31 @@ def main(argv=None, details: dict = None):
         batch_log.append((t_prev - t0, len(names), wait))
     seconds = time.perf_counter() - t0
 
+    lpips_vals = np.asarray(lpips_vals, np.float64)
+    fake_acts = np.concatenate(fake_acts)
     real_acts = (cached_real if cached_real is not None
                  else np.concatenate(real_acts))
-    fake_acts = np.concatenate(fake_acts)
-    if cache_path and cached_real is None:
+    if sharded:
+        lpips_vals, fake_acts = _zipzap(lpips_vals, n), _zipzap(fake_acts, n)
+        if cached_real is None:
+            real_acts = _zipzap(real_acts, n)
+    if cache_path and cached_real is None and rank == 0:
         np.savez(cache_path, acts=real_acts)
         print(f"cached real activations -> {cache_path}")
 
-    print("Calculating Frechet distance. Please wait... ")
-    fid_value = fid_from_feature_arrays(real_acts, fake_acts)
+    fid_value = None
+    if rank == 0:
+        print("Calculating Frechet distance. Please wait... ")
+        fid_value = fid_from_feature_arrays(real_acts, fake_acts)
+    fid_value = parallel.broadcast_scalar(fid_value)
     lpips_mean = float(np.mean(lpips_vals))
     print("FID:", fid_value)
     print("LPIPS: ", lpips_mean)
-    print(f"evaluated {n} images in {seconds:.2f}s "
-          f"({n / seconds:.2f} img/s, {args.device}); {waited:.2f}s of it "
-          "waiting for the loader")
+    print(f"evaluated {len(indices)} images in {seconds:.2f}s "
+          f"({len(indices) / seconds:.2f} img/s, {device}); {waited:.2f}s "
+          "of it waiting for the loader")
     if details is not None:
-        details.update(lpips=np.asarray(lpips_vals, np.float64),
+        details.update(lpips=lpips_vals,
                        real_acts=real_acts, fake_acts=fake_acts, n=n,
                        seconds=seconds, waited=waited, batches=batch_log)
     return fid_value, lpips_mean

@@ -9,6 +9,13 @@ One process trains on one device: the card by default (`--device cuda`
 raises when there is none), `--device cpu` for the CPU. On a card float32
 means IEEE float32 (TF32 off, as in the other CLIs of the port). The
 flags are the JAX CLI's, plus `--device`.
+
+Data parallel: launch one process per device with `torch.distributed.run`
+(e.g. ``python -m torch.distributed.run --standalone --nproc-per-node 4
+-m migan_tpu_torch.cli.train ...``); each rank trains on `cuda:LOCAL_RANK`
+over NCCL (gloo with `--device cpu`), `train.batch_size` stays the global
+batch (`batch_size_per_device` is per rank), and rank 0 writes the run
+directory.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import shutil
 
 import torch
 
+from .. import parallel
 from ..utils.config import (ConfigBanks, apply_overrides, cfg_to_debug,
                             cfg_unique_holder, get_experiment_id,
                             split_batch)
@@ -70,8 +78,10 @@ def cfg_initiates(cfg, args):
     if args.debug:
         cfg_to_debug(cfg)
     if cfgt.get("experiment_id") is None:
-        cfgt["experiment_id"] = get_experiment_id()
-    split_batch(cfgt, 1)
+        # every rank names the run directory after rank 0's clock
+        cfgt["experiment_id"] = int(parallel.broadcast_scalar(
+            get_experiment_id()))
+    split_batch(cfgt, parallel.world())
 
     sig = "-".join(str(s) for s in (cfgt.get("signature") or []))
     model_name = cfg.get("model_g", {}).get("name", "model")
@@ -82,6 +92,8 @@ def cfg_initiates(cfg, args):
     log_dir = osp.join(log_root, run_name)
     cfgt["log_dir"] = log_dir
     os.makedirs(log_dir, exist_ok=True)
+    if parallel.rank() != 0:
+        return cfg          # rank 0 alone writes the log, code and config
     set_log_file(osp.join(log_dir, "train.log"))
 
     # code snapshot (reference cfg_helper.py:551-563)
@@ -101,7 +113,14 @@ def cfg_initiates(cfg, args):
 def main(argv=None):
     """Runs the CLI; returns the final `TrainState`."""
     args = get_args(argv)
-    device = torch.device(args.device)
+    device = parallel.maybe_initialize_distributed(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        parallel.destroy()
+
+
+def _train(args, device: torch.device):
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {args.device!r} requested but no "

@@ -1,11 +1,13 @@
-"""The training sampler and a threaded prefetching batch loader: the
-port's own copy of `migan_tpu/data/sampler.py` (`InfiniteSampler`,
-`_item_rng`, `DataLoader` with `start_position`) and of
-`migan_tpu/data/factory.py::collate` (numpy only), as single-process
-training and evaluation use them. The shard sampler and the loader's
-multi-process item positions (`position_stride`, `position_block`) come
-with data parallelism.
+"""Deterministic shard-aware samplers and a threaded prefetching batch
+loader: the port's own copy of `migan_tpu/data/sampler.py`
+(`ShardSampler`, `InfiniteSampler`, `_item_rng`, `DataLoader`) and of
+`migan_tpu/data/factory.py::collate` (numpy only). Reference: lib/
+data_factory/common/ds_sampler.py:7-85.
 
+  - Every rank derives the same permutation from the same integer seed,
+    where the reference broadcasts a rank-0 randperm (ds_sampler.py:77-85).
+  - `extend=True` pads to an equal per-shard length for evaluation
+    (ds_sampler.py:49-52).
   - The loader is a thread pool with a bounded queue; PIL decode and numpy
     release the GIL in their hot parts.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterator, List, Sequence
+from typing import Any, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -41,21 +43,74 @@ def collate(items: Sequence[Any]):
     return list(items)
 
 
+class ShardSampler:
+    """Rank-strided sampler with a seed-derived global permutation."""
+
+    def __init__(self, dataset_len: int, num_shards: int = 1, shard: int = 0,
+                 shuffle: bool = True, seed: int = 0, extend: bool = False):
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} of {num_shards}")
+        self.n = dataset_len
+        self.num_shards = num_shards
+        self.shard = shard
+        self.shuffle = shuffle
+        self.seed = seed
+        self.extend = extend
+
+    def epoch_indices(self, epoch: int = 0) -> np.ndarray:
+        if self.shuffle:
+            order = np.random.RandomState(self.seed + epoch).permutation(
+                self.n)
+        else:
+            order = np.arange(self.n)
+        if self.extend:
+            # pad so that every shard sees the same count (evaluation's
+            # re-interleaving)
+            pad = (-len(order)) % self.num_shards
+            if pad:
+                order = np.concatenate([order, order[:pad]])
+        else:
+            usable = (len(order) // self.num_shards) * self.num_shards
+            order = order[:usable]
+        return order[self.shard::self.num_shards]
+
+
 class InfiniteSampler:
     """Endless shuffled index stream for training: pass after pass of
     `np.random.RandomState(seed + epoch).permutation(dataset_len)`
-    (reference misc.py:109-140, with seed-derived reshuffling), the
-    single-process stream of the JAX package's block-sharded sampler."""
+    (reference misc.py:109-140, with seed-derived reshuffling).
 
-    def __init__(self, dataset_len: int, seed: int = 0):
-        self.n = dataset_len
-        self.seed = seed
+    block: block-contiguous sharding. With ``block=b``, shard p of P
+    yields exactly the positions t of the single-process stream
+    (``InfiniteSampler(n, seed=seed)``) for which ``(t // b) % P == p``:
+    it owns the rows [p*b, (p+1)*b) of every P*b items, and the union of
+    the shards, re-interleaved block by block, is the single-process
+    stream. ``block=None`` strides item by item (`ShardSampler`)."""
+
+    def __init__(self, dataset_len: int, num_shards: int = 1, shard: int = 0,
+                 seed: int = 0, block: Optional[int] = None):
+        if block is not None and block < 1:
+            raise ValueError(f"block {block}")
+        self.inner = ShardSampler(dataset_len, num_shards, shard,
+                                  shuffle=True, seed=seed)
+        self.block = block
+        # the global (single-process) stream a block shard filters
+        self._global = ShardSampler(dataset_len, 1, 0, shuffle=True,
+                                    seed=seed)
 
     def __iter__(self) -> Iterator[int]:
         epoch = 0
+        if self.block is None:
+            while True:
+                yield from (int(i) for i in self.inner.epoch_indices(epoch))
+                epoch += 1
+        b, P, p = self.block, self.inner.num_shards, self.inner.shard
+        t = 0      # the global stream position, continuous across epochs
         while True:
-            yield from (int(i) for i in np.random.RandomState(
-                self.seed + epoch).permutation(self.n))
+            for idx in self._global.epoch_indices(epoch):
+                if (t // b) % P == p:
+                    yield int(idx)
+                t += 1
             epoch += 1
 
 
@@ -73,16 +128,26 @@ class DataLoader:
     is made with its own RandomState from (seed, global item position), so
     any RNG the dataset consumes is deterministic at any worker count.
     When None, the dataset draws from the global ``np.random`` stream,
-    which is deterministic only at num_workers=1. The t-th item this
-    loader yields sits at position start_position + t of the stream: a
-    resumed run passes the items already consumed, so the per-item RNG
-    continues where it stopped (the caller fast-forwards `indices` to
-    match).
+    which is deterministic only at num_workers=1.
+
+    start_position / position_stride / position_block: where this
+    loader's items sit in the global item stream. Its t-th item sits at
+    ``start_position + (t // position_block) * position_stride *
+    position_block + (t % position_block)``: blocks of `position_block`
+    items, `position_stride` blocks apart (with the default block of 1,
+    ``start_position + t * position_stride``). A resumed run passes the
+    items already consumed, so the per-item RNG continues where it
+    stopped (the caller fast-forwards `indices` to match). Rank p of P of
+    a block-sharded training run passes ``start_position = step *
+    global_batch + p * b``, ``position_stride = P``, ``position_block =
+    b``, so that its items take the positions the single-process run
+    gives them.
     """
 
     def __init__(self, dataset, batch_size: int, indices=None,
                  num_workers: int = 4, prefetch: int = 4,
-                 drop_last: bool = True, seed=None, start_position: int = 0):
+                 drop_last: bool = True, seed=None, start_position: int = 0,
+                 position_stride: int = 1, position_block: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.indices = indices
@@ -96,6 +161,14 @@ class DataLoader:
                 "accept __getitem__(idx, rng=...))")
         self.seed = seed
         self.start_position = start_position
+        self.position_stride = position_stride
+        self.position_block = position_block
+
+    def _position(self, t: int) -> int:
+        """The global item-stream position of this loader's t-th item."""
+        b = self.position_block
+        return (self.start_position
+                + (t // b) * self.position_stride * b + (t % b))
 
     def _index_batches(self):
         """Yields (t0, [dataset indices]); t0 is the local ordinal of the
@@ -139,7 +212,7 @@ class DataLoader:
                     else:
                         items = [self.dataset.__getitem__(
                             i, rng=_item_rng(self.seed,
-                                             self.start_position + t0 + j))
+                                             self._position(t0 + j)))
                             for j, i in enumerate(idxs)]
                     q.put((seq, collate(items)))
                 except Exception as e:      # re-raised by the consumer

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import conv2d_resample, get_unit, setup_filter, upsample2d
 
 NOISE_MODES = ("random", "const", "none")
@@ -83,9 +84,18 @@ def randn(shape, generator: torch.Generator, device,
     """N(0, 1) draws of `shape` from `generator`, made on the generator's
     device and moved to `device`: the stream depends on the generator
     alone, so a CPU generator gives a run on the card the CPU run's
-    noise."""
-    return torch.randn(shape, generator=generator, device=generator.device,
-                       dtype=dtype).to(device)
+    noise.
+
+    Under data parallelism `shape[0]` is this rank's share of the batch:
+    each rank draws the global batch's ``[shape[0] * world, ...]`` from
+    its generator (in the same state on every rank) and keeps its own
+    rows, so P ranks draw what one process draws for the global batch."""
+    n, p = shape[0], parallel.world()
+    r = torch.randn((n * p, *shape[1:]), generator=generator,
+                    device=generator.device, dtype=dtype)
+    if p > 1:
+        r = r[parallel.rank() * n:(parallel.rank() + 1) * n]
+    return r.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -338,15 +348,27 @@ def minibatch_std(x: torch.Tensor, group_size: Optional[int],
                   num_channels: int = 1) -> torch.Tensor:
     """NHWC minibatch-std layer (reference migan.py:624-644): groups
     [G, N // G] with G = min(group_size, N), statistics appended as
-    `num_channels` channels."""
+    `num_channels` channels.
+
+    N is the global batch: under a process group of more than one rank
+    the rows of every rank are gathered in rank order
+    (`parallel.all_gather_rows`, differentiable), as the JAX package's
+    program groups its global array, and each rank keeps the statistics
+    of its own rows. (The reference's DDP takes them per GPU.)"""
     n, h, w, c = x.shape
-    g = min(group_size, n) if group_size is not None else n
+    p = parallel.world()
+    xs = parallel.all_gather_rows(x) if p > 1 else x
+    big_n = xs.shape[0]
+    g = min(group_size, big_n) if group_size is not None else big_n
     fch = num_channels
-    y = x.reshape(g, n // g, h, w, fch, c // fch)
+    y = xs.reshape(g, big_n // g, h, w, fch, c // fch)
     y = y - y.mean(dim=0)
     y = (y.square().mean(dim=0) + 1e-8).sqrt()
-    y = y.mean(dim=(1, 2, 4))                    # [n // g, F]
-    y = y.reshape(-1, 1, 1, fch).repeat(g, h, w, 1)
+    y = y.mean(dim=(1, 2, 4))                    # [N // g, F]
+    y = y.repeat(g, 1)                           # row i: column i % (N // g)
+    if p > 1:
+        y = y[parallel.rank() * n:(parallel.rank() + 1) * n]
+    y = y.reshape(-1, 1, 1, fch).repeat(1, h, w, 1)
     return torch.cat([x, y.to(x.dtype)], dim=-1)
 
 

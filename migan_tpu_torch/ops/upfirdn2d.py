@@ -63,21 +63,38 @@ def upfirdn2d(x: torch.Tensor, f: torch.Tensor | None, up=1, down=1,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def upsample2d(x, f, up=2):
-    """FIR upsampling; the gain up*up keeps the DC level (reference
-    upfirdn2d.py:334-343)."""
-    upx, upy = parse_scaling(up)
+def filter2d(x, f, padding=0, flip_filter: bool = False,
+             gain: float = 1.0) -> torch.Tensor:
+    """FIR-filter NHWC images; with padding 0 the output has the input's
+    size (padding arithmetic of reference upfirdn2d.py:296-304)."""
+    px0, px1, py0, py1 = parse_padding(padding)
     fw, fh = filter_size(f)
-    p = [(fw + upx - 1) // 2, (fw - upx) // 2,
-         (fh + upy - 1) // 2, (fh - upy) // 2]
-    return upfirdn2d(x, f, up=up, padding=p, gain=upx * upy)
+    p = [px0 + fw // 2, px1 + (fw - 1) // 2,
+         py0 + fh // 2, py1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
 
 
-def downsample2d(x, f, down=2):
+def upsample2d(x, f, up=2, padding=0, flip_filter: bool = False,
+               gain: float = 1.0) -> torch.Tensor:
+    """FIR upsampling; the gain is multiplied by up*up to keep the DC
+    level (reference upfirdn2d.py:334-343)."""
+    upx, upy = parse_scaling(up)
+    px0, px1, py0, py1 = parse_padding(padding)
+    fw, fh = filter_size(f)
+    p = [px0 + (fw + upx - 1) // 2, px1 + (fw - upx) // 2,
+         py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter: bool = False,
+                 gain: float = 1.0) -> torch.Tensor:
     """FIR downsampling (padding arithmetic of reference
     upfirdn2d.py:373-382)."""
     downx, downy = parse_scaling(down)
+    px0, px1, py0, py1 = parse_padding(padding)
     fw, fh = filter_size(f)
-    p = [(fw - downx + 1) // 2, (fw - downx) // 2,
-         (fh - downy + 1) // 2, (fh - downy) // 2]
-    return upfirdn2d(x, f, down=down, padding=p)
+    p = [px0 + (fw - downx + 1) // 2, px1 + (fw - downx) // 2,
+         py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter,
+                     gain=gain)

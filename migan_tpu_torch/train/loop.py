@@ -1,4 +1,4 @@
-"""Training orchestration: the tick loop, on one device.
+"""Training orchestration: the tick loop, on one device per rank.
 
 Port of `migan_tpu/train/loop.py::train_stage` (reference lib/experiments/
 migan_default.py:132-597): the phase schedule with lazy R1, the EMA, tick
@@ -10,6 +10,16 @@ items the restored step count has consumed, the per-item mask and flip
 RNG continues at the same absolute item positions, and each step's noise
 comes from a `torch.Generator` seeded from (seed, absolute step index),
 so a killed and resumed run replays the uninterrupted one.
+
+Data parallelism (`migan_tpu/train/loop.py:266-337`): `train.batch_size`
+is the global batch, split evenly over the ranks of a torch.distributed
+group. Rank p loads, in blocks of local_batch / grad_accum_rounds items,
+the rows of each global round that the single-process stream puts there
+(`InfiniteSampler(block=...)`, the loader's block-strided positions), so
+that P ranks train on the single-process stream. Rank 0 alone writes the
+grids, `stats.jsonl`, TensorBoard and checkpoints (the others wait at a
+barrier after each checkpoint) and runs the metrics, whose FID it
+broadcasts, so every rank takes the same best-checkpoint decision.
 
 The metric branch (reference migan_default.py:462-490): every
 `snapshot.evaluate` ticks (from tick 1) each of `train.metrics` runs on
@@ -34,6 +44,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils import stats as training_stats
 from ..utils.logging import print_log
 from . import checkpoint as ckpt
@@ -240,23 +251,34 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
     from ..models.registry import count_params, get_model
 
     device = torch.device(device)
+    print_log(parallel.describe(device))
     cfgt = cfg["train"]
     log_dir = cfgt["log_dir"]
     os.makedirs(log_dir, exist_ok=True)
     seed = cfg.get("env", {}).get("rnd_seed", 0)
     np.random.seed(seed)
+    n_proc, proc = parallel.world(), parallel.rank()
+    is_chief = proc == 0
 
     # ----- data ------------------------------------------------------------
     trainset = get_dataset(cfgt["dataset"])
     print_log(f"train dataset: {cfgt['dataset']['name']} "
               f"({len(trainset)} items)")
     batch_size = cfgt["batch_size"]
-    sampler = InfiniteSampler(len(trainset), seed=seed)
+    tcfg = _train_config_from_cfg(cfgt)
+    rounds = max(1, tcfg.grad_accum_rounds)
+    if batch_size % (n_proc * rounds):
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"{n_proc} ranks x {rounds} rounds")
+    local_bs = batch_size // n_proc
+    # rank p's round r is rows [p*block, (p+1)*block) of the global round r
+    block = local_bs // rounds
+    sampler = InfiniteSampler(len(trainset), num_shards=n_proc, shard=proc,
+                              seed=seed, block=block)
 
     # ----- models ----------------------------------------------------------
     g_cfg = get_model()(cfg["model_g"]).cfg
     d_cfg = get_model()(cfg["model_d"]).cfg
-    tcfg = _train_config_from_cfg(cfgt)
     teacher = _make_teacher(cfgt, device)
     state = init_train_state(torch.Generator().manual_seed(seed), g_cfg,
                              d_cfg, tcfg, device)
@@ -270,14 +292,18 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
         print_log(f"resumed from {path} at step {state.step}")
 
     # the data stream is addressed by absolute item position: skip the
-    # items the restored steps consumed
-    skip_items = state.step * batch_size
+    # items the restored steps consumed; this rank's items sit at their
+    # single-process positions
+    skip_items = state.step * local_bs
     sampler_it = iter(sampler)
     if skip_items:
         next(itertools.islice(sampler_it, skip_items - 1, skip_items))
-    loader = DataLoader(trainset, batch_size, indices=sampler_it,
+    loader = DataLoader(trainset, local_bs, indices=sampler_it,
                         num_workers=cfgt.get("dataset_num_workers") or 4,
-                        seed=seed, start_position=skip_items)
+                        seed=seed,
+                        start_position=state.step * batch_size
+                        + proc * block,
+                        position_stride=n_proc, position_block=block)
     step_fn = make_train_step(g_cfg, d_cfg, tcfg, teacher=teacher)
     d_reg_interval = cfgt.get("d_reg_interval") or 0
     wire = cfgt.get("wire_format") or "f32"
@@ -292,7 +318,7 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
     kimg_per_tick = cfgt.get("kimg_per_tick", 4)
     snapshot = cfgt.get("snapshot", {})
     collector = training_stats.default_collector()
-    tb = _make_tb_writer(log_dir)
+    tb = _make_tb_writer(log_dir) if is_chief else None
     cur_nimg = state.nimg
     batch_idx = state.step
     cur_tick = 0
@@ -302,9 +328,10 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
     best_metric = None
     metric_ctx = _build_metric_ctx(cfg, device)
     ckpt_dir = osp.join(log_dir, "weight")
-    drew_init = False
+    drew_init = not is_chief
     done = False
-    with open(osp.join(log_dir, "stats.jsonl"), "at") as stats_jsonl:
+    stats_path = osp.join(log_dir, "stats.jsonl") if is_chief else os.devnull
+    with open(stats_path, "at") as stats_jsonl:
         for x, mask, _uid in loader:
             if not drew_init:
                 # init grids (reference draw_functor isinit branch,
@@ -323,7 +350,7 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
             do_dr1 = d_reg_interval > 0 and batch_idx % d_reg_interval == 0
             stats = step_fn(state, batch, gen, do_dr1=do_dr1)
             training_stats._default_registry.report_dict(
-                {k: float(v) for k, v in stats.items()})
+                training_stats.mean_across_ranks(stats))
             cur_nimg += batch_size
             batch_idx += 1
             done = (cur_nimg >= total_kimg * 1000
@@ -357,7 +384,8 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
             if "Resources/peak_device_mem_gb" in resources:
                 line += (f"  devmem "
                          f"{resources['Resources/peak_device_mem_gb']:.2f}g")
-            print_log(line)
+            if is_chief:
+                print_log(line)
             stats_jsonl.write(json.dumps(
                 {**fields, **collector.as_dict(), **resources}) + "\n")
             stats_jsonl.flush()
@@ -368,7 +396,8 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
                     tb.add_scalar(k, v, cur_nimg)
                 tb.flush()
 
-            if snapshot.get("image") and cur_tick % snapshot["image"] == 0:
+            if (is_chief and snapshot.get("image")
+                    and cur_tick % snapshot["image"] == 0):
                 from ..models.migan import generator_apply
 
                 m = np.asarray(mask[..., None])
@@ -387,8 +416,10 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
             if (snapshot.get("evaluate") and metric_ctx is not None
                     and cur_tick % snapshot["evaluate"] == 0
                     and cur_tick > 0):
-                fid = _run_metrics(state, metric_ctx, log_dir)
-                if fid is not None:
+                fid = parallel.broadcast_scalar(
+                    _run_metrics(state, metric_ctx, log_dir) if is_chief
+                    else None)
+                if fid is not None and is_chief:
                     print_log(f"tick {cur_tick}  Metrics/fid {fid:.3f}")
                     stats_jsonl.write(json.dumps(
                         {"tick": cur_tick, "kimg": round(cur_nimg / 1e3, 1),
@@ -401,17 +432,22 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
                     # the reference keeps one best snapshot, the lowest
                     # FID (migan_default.py:139-146)
                     best_metric = fid
-                    best_dir = osp.join(ckpt_dir, "best")
-                    path = ckpt.save(best_dir, batch_idx, state)
-                    for d in os.listdir(best_dir):
-                        if d.startswith("step_") and d != osp.basename(path):
-                            shutil.rmtree(osp.join(best_dir, d))
-                    print_log(f"new best FID {fid:.3f}: {path}")
+                    if is_chief:
+                        best_dir = osp.join(ckpt_dir, "best")
+                        path = ckpt.save(best_dir, batch_idx, state)
+                        for d in os.listdir(best_dir):
+                            if (d.startswith("step_")
+                                    and d != osp.basename(path)):
+                                shutil.rmtree(osp.join(best_dir, d))
+                        print_log(f"new best FID {fid:.3f}: {path}")
+                    parallel.barrier()
 
             if snapshot.get("checkpoint") and (
                     cur_tick % snapshot["checkpoint"] == 0 or done):
-                path = ckpt.save(ckpt_dir, batch_idx, state)
-                print_log(f"checkpoint: {path}")
+                if is_chief:
+                    path = ckpt.save(ckpt_dir, batch_idx, state)
+                    print_log(f"checkpoint: {path}")
+                parallel.barrier()
 
             cur_tick += 1
             tick_start_nimg = cur_nimg

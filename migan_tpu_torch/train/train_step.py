@@ -18,9 +18,18 @@ gradient reaches it (the JAX package masks its gradient instead).
 
 Each phase takes the gradient of its loss with respect to its own
 module's parameters only (`torch.autograd.grad`), so no phase leaves
-gradients on the other module. The JAX package's `make_fused_train_step`
-(k steps in one program) has no counterpart: the loop runs the steps one
-after another, which its own tests hold equal to the fused program.
+gradients on the other module.
+
+Under data parallelism each rank holds its rows of the global batch (the
+loop lays them out so that rank p's round r of gradient accumulation is
+its share of the global round r) and every random draw is the global
+batch's (`models.migan.randn`); each phase's gradients are averaged over
+the ranks (`parallel.all_reduce_mean`) before they are sanitized and
+applied, which is the JAX package's gradient of the global mean.
+
+The JAX package's `make_fused_train_step` (k steps in one program) has no
+counterpart: the loop runs the steps one after another, which its own
+tests hold equal to the fused program.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..models import migan
 from . import loss as losses
 
@@ -115,6 +125,13 @@ def _sanitize_grads(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """reference torch_utils/misc.py:46-56 applied to every gradient."""
     return [torch.nan_to_num(g, nan=0.0, posinf=1e5, neginf=-1e5)
             for g in grads]
+
+
+def _reduce_and_apply(opt: torch.optim.Optimizer,
+                      params: Sequence[nn.Parameter],
+                      grads: Sequence[torch.Tensor]) -> None:
+    """The ranks' mean gradient, sanitized, applied by `opt`."""
+    _apply(opt, params, _sanitize_grads(parallel.all_reduce_mean(grads)))
 
 
 def _apply(opt: torch.optim.Optimizer, params: Sequence[nn.Parameter],
@@ -251,7 +268,7 @@ class TrainStep:
         params = list(state.G.parameters())
         grads, stats = _accum_grads(loss_fn, params, (real, mask),
                                     self.rounds, generator)
-        _apply(state.opt_G, params, _sanitize_grads(grads))
+        _reduce_and_apply(state.opt_G, params, grads)
         return stats
 
     def d_phase(self, state: TrainState, real, mask, generator):
@@ -262,7 +279,7 @@ class TrainStep:
         params = list(state.D.parameters())
         grads, stats = _accum_grads(loss_fn, params, (real, mask),
                                     self.rounds, generator)
-        _apply(state.opt_D, params, _sanitize_grads(grads))
+        _reduce_and_apply(state.opt_D, params, grads)
         return stats
 
     def r1_phase(self, state: TrainState, real, mask):
@@ -277,7 +294,7 @@ class TrainStep:
         params = list(state.D.parameters())
         grads, stats = _accum_grads(loss_fn, params, (real, mask),
                                     self.rounds)
-        _apply(state.opt_D, params, _sanitize_grads(grads))
+        _reduce_and_apply(state.opt_D, params, grads)
         return stats
 
     def ema_phase(self, state: TrainState, nimg: int) -> None:
@@ -291,7 +308,7 @@ class TrainStep:
         stats.update(self.d_phase(state, real, mask, generator))
         if do_dr1:
             stats.update(self.r1_phase(state, real, mask))
-        nimg = state.nimg + real.shape[0]
+        nimg = state.nimg + real.shape[0] * parallel.world()
         self.ema_phase(state, nimg)
         state.step += 1
         state.nimg = nimg

@@ -4,7 +4,10 @@
 `report(name, value)` accumulates [count, sum, sum of squares] per name;
 a `Collector` snapshot gives the mean and std since its last update.
 Values arrive as Python floats or tensors (moved to the host here);
-non-finite values are dropped, as the reference does.
+non-finite values are dropped, as the reference does. Under data
+parallelism a step's stats are its ranks' means (`mean_across_ranks`)
+before they are reported, so that they read as one process's over the
+global batch.
 """
 
 from __future__ import annotations
@@ -19,6 +22,23 @@ def _host(value) -> np.ndarray:
     if hasattr(value, "detach"):
         value = value.detach().to("cpu", dtype=value.dtype).double().numpy()
     return np.asarray(value, np.float64).reshape(-1)
+
+
+def mean_across_ranks(stats: Dict[str, "torch.Tensor"]) -> Dict[str, float]:
+    """Each scalar stat averaged over the ranks of the process group (one
+    all-reduce in float64; every rank passes the same names in the same
+    order), as floats; without a group, the values as floats."""
+    import torch
+
+    from .. import parallel
+
+    names = list(stats)
+    if not parallel.is_initialized():
+        return {k: float(stats[k]) for k in names}
+    dev = parallel.collective_device()
+    v = torch.stack([torch.as_tensor(stats[k]).to(dev, torch.float64)
+                     for k in names])
+    return dict(zip(names, parallel.all_reduce_mean([v])[0].tolist()))
 
 
 class StatsRegistry:

@@ -5,8 +5,9 @@ app pipeline, a served request in each of the server's modes and the
 evaluation CLI, the export CLI (training weights folded, the kernel
 chain exported), the create_pipeline CLI (a bucket and the dynamic
 program), one step of the training CLI, a native mask, an ffhqzip
-item and an in-loop metric evaluation with a random detector, and finds
-neither in sys.modules. `chip_smoke.py` names neither
+item, an in-loop metric evaluation with a random detector, and a 1-rank
+gloo group's gather and gradient all-reduce, and finds neither in
+sys.modules. `chip_smoke.py` names neither
 in any of its imports, and imports the demo, serve, evaluate, export and
 create_pipeline entry points."""
 
@@ -172,10 +173,28 @@ with tempfile.TemporaryDirectory() as d:
                                                      noise_mode="const"),
         detector_fn=lambda x: det(x)[:, :64], cache_dir=f"{d}/fid-cache")
     assert np.isfinite(r["results"]["fid"])
+
+    # a 1-rank gloo group: one all_gather_rows (and its backward) and one
+    # gradient all-reduce
+    import socket
+    from migan_tpu_torch import parallel
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    assert parallel.maybe_initialize_distributed("cpu").type == "cpu"
+    assert parallel.backend() == "gloo" and parallel.world() == 1
+    w = torch.ones(3, requires_grad=True)
+    (gw,) = torch.autograd.grad(
+        parallel.all_gather_rows(w[None] * 2).sum(), w)
+    assert torch.equal(parallel.all_reduce_mean([gw])[0],
+                       torch.full((3,), 2.0))
+    parallel.destroy()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 62 else 0)
+sys.exit(1 if bad or len(names) < 66 else 0)
 """
 
 
