@@ -73,14 +73,15 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      kernel chain is held below 0.5% too;
   8. trains: the training CLI (`migan_tpu_torch.cli.train --experiment
      migan_places256`, full width, batch 32, a seeded full-width
-     Co-Mod-GAN-256 teacher, R1 at step 0, `--max-steps 12`, a
-     checkpoint every 2 ticks of 4 steps) in a process of its own with
+     Co-Mod-GAN-256 teacher, R1 at step 0, `--max-steps 4`, a
+     checkpoint every 2 ticks of 2 steps) in a process of its own with
      deterministic algorithms; a second run SIGKILLed after its first
-     checkpoint and resumed to step 12 as the one rank of
+     checkpoint and resumed to step 4 as the one rank of
      `torch.distributed.run` (an NCCL group of one rank: the gradients'
      and stats' all-reduces run on the card), its final state held
      bit-equal to the first run's; one step at batch 2 on the card
-     against the CPU from the same state and noise; each phase's device
+     against the CPU from the same state and noise (the CPU's half on a
+     thread beside the second run); each phase's device
      ms with default and with deterministic algorithms, the peak memory
      of a batch-32 step, and the device's busy share in one
      deterministic step under torch.profiler; the export CLI on the
@@ -92,7 +93,7 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      images, filler entries to the split at entry 10,000, 64 distinct
      train images) with native masks (`mask_backend=native`, the C++
      rasterizer built from `csrc/host/maskgen.cpp`) and a seeded
-     TF-named Inception state dict, 12 steps in ticks of 4, an
+     TF-named Inception state dict, 6 steps in ticks of 2, an
      evaluation of `fid10k_full_inpainting` (capped at the 128 val
      items) at ticks 1 and 2; checks the `nvidia_tf` flavor in the log,
      one finite FID per evaluation in `metric-*.jsonl` and as
@@ -103,7 +104,25 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      8 val items on the card against the CPU (features within 1e-3
      relative L2); prints s/kimg, each evaluation's time and its split
      (real stats, composite stats, Frechet distance), peak device
-     memory and host masks/s at 256 on one thread, native against PIL.
+     memory and host masks/s at 256 on one thread, native against PIL;
+ 10. trains with the fused k-step call: the training CLI (`--experiment
+     demo_places128`, full width, batch 32, its steps_per_call 8, u8
+     wire format and native masks) with deterministic algorithms for 32
+     steps in ticks of one call (R1 at steps 0 and 16: both captured
+     graphs replayed), held bit for bit against the same run with
+     `--set train.steps_per_call=1` (G, D, the EMA, both Adam states,
+     every tick's loss moments); a fused run SIGKILLed after its first
+     checkpoint and resumed to step 32 as the one NCCL rank of
+     `torch.distributed.run`, held bit-equal to the uninterrupted run;
+     `demo_places128_kd` for 16 steps with a seeded full-width
+     Co-Mod-GAN-128 teacher written by `cli.make_random_teacher`
+     (default algorithms); prints for the fused and the sequential run
+     s/kimg from the tick lines, host ms per step in the step's call,
+     device ms per step, the device's busy share and idle ms per step
+     over one call under torch.profiler, peak memory allocated and
+     reserved (the fused run's reserved at most 1.25x the sequential
+     run's), the warm-up's and the captures' time; and the distance of
+     Adam's capturable update from its default.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -1483,10 +1502,10 @@ def phase_export(tmp: str, gpu: str, results: dict) -> None:
 # Phase 8: training on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_STEPS = 12          # R1 runs at step 0 (d_reg_interval 16)
+TRAIN_STEPS = 4           # R1 runs at step 0 (d_reg_interval 16)
 TRAIN_BATCH = 32          # the config's own
-TICK_STEPS = 4            # a tick of 4 steps, a checkpoint every 2 ticks
-CKPT_TICKS = 2
+TICK_STEPS = 2            # ticks of 2 steps, a checkpoint every 2 ticks:
+CKPT_TICKS = 2            # after step 2 (tick 0) and the last step
 # one step at batch 2 on the card against the CPU (TF32 off): the losses
 # and each phase's gradient (all its parameters' gradients as one vector,
 # relative L2), float32 sums in another order through ~60 layers (G, D,
@@ -1497,7 +1516,7 @@ CKPT_TICKS = 2
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3
 STEP_LOSSES = ("Loss/G/loss", "Loss/G/kd_l1_image_level_loss", "Loss/D/loss",
                "Loss/D/reg", "Loss/r1_penalty")
-PHASE_REPS = 3            # timed steps after 2 warm-up steps
+PHASE_REPS = 2            # timed steps after 1 warm-up step
 STEP_WINDOW = "migan_train_step"
 
 # The start line of a port CLI run as the one rank of an NCCL group
@@ -1575,7 +1594,7 @@ def _check_train_run(proc, out, out_path: str, what: str) -> None:
     if rc != 0:
         with open(out_path) as f:
             log = f.read()
-        raise RuntimeError(f"phase8 {what}: exit {rc}\n{log[-4000:]}")
+        raise RuntimeError(f"{what}: exit {rc}\n{log[-4000:]}")
 
 
 def _state_equal(a: dict, b: dict, path: str = "") -> list:
@@ -1630,45 +1649,59 @@ def _train_setup(device, teacher_path: str, batch: int):
     return step, state, data
 
 
-def _card_vs_cpu_step(teacher_path: str, gpu: str) -> None:
-    """One step (Gmain with the teacher, Dmain, Dreg) at batch 2 on the
-    card and on the CPU, each phase from the same state and the same
-    noise (CPU generators: `migan.randn` draws on the generator's
-    device). After each phase the card's state is set to the CPU's: with
-    beta1 = 0 the first Adam update is ~lr sign(g), which flips where a
-    gradient is within rounding of 0, and would start the next phase from
-    states 2 lr apart there."""
+STEP_PHASES = ("g", "d", "r1")
+
+
+def _step_phases(device: str, teacher_path: str, starts=None) -> dict:
+    """Each phase of one step (Gmain with the teacher, Dmain, Dreg) at
+    batch 2 on `device`, with the noise of a CPU generator seeded
+    SEED + 20 (`migan.randn` draws on the generator's device): its stats
+    and gradients (as `_apply` receives them). Without `starts` the
+    phases run one after another from the seeded state, and the state
+    each started from is kept; with them, phase i starts from starts[i]."""
+    import copy
+
     from migan_tpu_torch.train import train_step
     from migan_tpu_torch.train.train_step import decode_batch
 
-    runs = {dev: _train_setup(torch.device(dev), teacher_path, 2)
-            for dev in ("cpu", "cuda")}
-    gens = {dev: torch.Generator().manual_seed(SEED + 20) for dev in runs}
-    out = {dev: ({}, []) for dev in runs}
+    step, state, data = _train_setup(torch.device(device), teacher_path, 2)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    real, mask = decode_batch(data["real"], data["mask"])
+    out = {"stats": {}, "grads": [], "starts": []}
     orig = train_step._apply
-    for phase in ("g", "d", "r1"):
-        for dev, (step, state, data) in runs.items():
-            real, mask = decode_batch(data["real"], data["mask"])
-            grads = out[dev][1]
 
-            def spy(opt, params, g, grads=grads):
-                grads.append([t.detach().cpu() for t in g])
-                orig(opt, params, g)
+    def spy(opt, params, g):
+        out["grads"].append([t.detach().cpu() for t in g])
+        orig(opt, params, g)
 
-            train_step._apply = spy
-            try:
-                if phase == "r1":
-                    stats = step.r1_phase(state, real, mask)
-                else:
-                    stats = getattr(step, f"{phase}_phase")(
-                        state, real, mask, gens[dev])
-            finally:
-                train_step._apply = orig
-            out[dev][0].update({k: float(v) for k, v in stats.items()})
-        runs["cuda"][1].load_state_dict(runs["cpu"][1].state_dict())
-    del runs
-    runs = out
-    (s_cpu, g_cpu), (s_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    train_step._apply = spy
+    try:
+        for i, phase in enumerate(STEP_PHASES):
+            if starts is None:
+                out["starts"].append(copy.deepcopy(state.state_dict()))
+            else:
+                state.load_state_dict(starts[i])
+            if phase == "r1":
+                stats = step.r1_phase(state, real, mask)
+            else:
+                stats = getattr(step, f"{phase}_phase")(state, real, mask,
+                                                        gen)
+            out["stats"].update({k: float(v) for k, v in stats.items()})
+    finally:
+        train_step._apply = orig
+    return out
+
+
+def _card_vs_cpu_step(teacher_path: str, cpu: dict, gpu: str) -> None:
+    """One step at batch 2 on the card against the CPU's (`cpu`, from
+    `_step_phases("cpu", ...)`): the same noise, and each phase from the
+    state the CPU's phase started from. With beta1 = 0 the first Adam
+    update is ~lr sign(g), which flips where a gradient is within
+    rounding of 0: a phase started from the card's own previous phase
+    would start from states 2 lr apart there."""
+    card = _step_phases("cuda", teacher_path, cpu["starts"])
+    (s_cpu, g_cpu), (s_gpu, g_gpu) = ((cpu["stats"], cpu["grads"]),
+                                      (card["stats"], card["grads"]))
     rel = {k: abs(s_gpu[k] - s_cpu[k]) / max(abs(s_cpu[k]), 1e-30)
            for k in STEP_LOSSES}
     for k in STEP_LOSSES:
@@ -1695,7 +1728,7 @@ def _card_vs_cpu_step(teacher_path: str, gpu: str) -> None:
 
 def _phase_times(teacher_path: str, gpu: str) -> None:
     """Median device ms of each phase of a batch-32 step by CUDA events
-    after 2 warm-up steps, the teacher's forward alone, and the peak
+    after 1 warm-up step, the teacher's forward alone, and the peak
     device memory of a step: with PyTorch's default algorithms, then with
     deterministic algorithms, as the training CLI runs here. Then one
     deterministic step (Gmain, Dmain, EMA) under torch.profiler: the
@@ -1718,13 +1751,13 @@ def _phase_times(teacher_path: str, gpu: str) -> None:
             torch.cat([mask - 0.5, real * mask], dim=-1), gen),
         "Dmain": lambda: step.d_phase(state, real, mask, gen),
         "Dreg (R1)": lambda: step.r1_phase(state, real, mask),
-        "EMA": lambda: step.ema_phase(state, state.nimg + TRAIN_BATCH),
+        "EMA": lambda: step.ema_phase(
+            state, step.beta(state.nimg + TRAIN_BATCH, dev)),
     }
     try:
         for det in (False, True):
             torch.use_deterministic_algorithms(det)
-            for _ in range(2):
-                step(state, data, gen, do_dr1=True)
+            step(state, data, gen, do_dr1=True)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             times = {k: [] for k in phases}
@@ -1741,7 +1774,7 @@ def _phase_times(teacher_path: str, gpu: str) -> None:
             print(f"phase8 migan_places256 batch 32 step, "
                   f"{'deterministic' if det else 'default'} algorithms, "
                   f"median device ms per phase (CUDA events, {PHASE_REPS} "
-                  f"steps after 2 warm-up steps): "
+                  f"steps after 1 warm-up step): "
                   + ", ".join(f"{k} {statistics.median(v):.2f}"
                               for k, v in times.items())
                   + f"; peak device memory {peak:.2f} GiB ({gpu})",
@@ -1793,12 +1826,15 @@ def _write_teacher(tmp: str) -> str:
 
 def phase_train(tmp: str, gpu: str, results: dict) -> str:
     """`cli.train --experiment migan_places256` (full width, batch 32,
-    the seeded full-width Co-Mod-GAN-256 teacher, R1) for 12 steps; a run
-    SIGKILLed after its first checkpoint and resumed, held bit-equal to
-    the uninterrupted one; one step on the card against the CPU; the
+    the seeded full-width Co-Mod-GAN-256 teacher, R1) for 4 steps; a run
+    SIGKILLed after its first checkpoint and resumed as the one NCCL rank
+    of torch.distributed.run, held bit-equal to the uninterrupted one;
+    one step on the card against the CPU (its CPU half computed on a
+    thread of this process beside the killed and the resumed run); the
     phases' device times; the export CLI on the checkpoint."""
     import glob
     import signal
+    import threading
 
     import numpy as np
 
@@ -1822,7 +1858,7 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
     out_a = os.path.join(tmp, "train_a.log")
     t0 = time.perf_counter()
     proc, out = _train_process(_train_argv(teacher_path, root_a, "a"), out_a)
-    _check_train_run(proc, out, out_a, "uninterrupted run")
+    _check_train_run(proc, out, out_a, "phase8 uninterrupted run")
     wall_a = time.perf_counter() - t0
     run_a = _run_dir(root_a)
     ticks = _tick_lines(out_a)
@@ -1865,9 +1901,26 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
           f"initial values; G {_numel(state_a['params_G']):,} elements, "
           f"D {_numel(state_a['params_D']):,}", flush=True)
 
-    # 2. killed after its first committed checkpoint, then resumed
+    # 2. the CPU half of one step at batch 2, on a thread beside runs b
+    # and c (which wait on the card)
+    cpu_half = {}
+
+    def run_cpu_half():
+        t = time.perf_counter()
+        try:
+            cpu_half["out"] = _step_phases("cpu", teacher_path)
+        except BaseException as e:  # raised again on the main thread
+            cpu_half["error"] = e
+        cpu_half["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run_cpu_half, daemon=True)
+    thread.start()
+
+    # 3. killed after its first committed checkpoint, then resumed as the
+    # one rank of an NCCL group
     root_b = os.path.join(tmp, "train_b")
     out_b = os.path.join(tmp, "train_b.log")
+    t0 = time.perf_counter()
     proc, out = _train_process(_train_argv(teacher_path, root_b, "b"), out_b)
     killed_at = None
     deadline = time.time() + 900
@@ -1880,6 +1933,7 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
         time.sleep(0.05)
     proc.wait(timeout=60)
     out.close()
+    wall_b = time.perf_counter() - t0
     check(killed_at is not None, "phase8: run b ended before its first "
           "checkpoint")
     run_b = _run_dir(root_b)
@@ -1891,7 +1945,7 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
         _train_argv(teacher_path, root_c, "c")
         + ["--resume-path", os.path.join(run_b, "weight")], out_c,
         launcher=_one_rank(tmp, "train_launcher", TRAIN_LAUNCHER))
-    _check_train_run(proc, out, out_c, "resumed run")
+    _check_train_run(proc, out, out_c, "phase8 resumed run")
     wall_c = time.perf_counter() - t0
     with open(out_c) as f:
         log_c = f.read()
@@ -1901,7 +1955,8 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
     diff = _state_equal(state_a, ckpt.load(final_c))
     check(not diff, f"phase8: the resumed run differs from the "
           f"uninterrupted one at {diff[:10]}")
-    print(f"phase8 run b SIGKILLed with {killed_at} on disk, resumed from "
+    print(f"phase8 run b SIGKILLed with {killed_at} on disk "
+          f"({wall_b:.1f} s wall), resumed from "
           f"{os.path.basename(resumed_from)} to step {TRAIN_STEPS} as one "
           f"rank of torch.distributed.run ({ONE_RANK_LINE}; gradients "
           f"and stats through NCCL; {wall_c:.1f} s wall): its final state "
@@ -1909,11 +1964,25 @@ def phase_train(tmp: str, gpu: str, results: dict) -> str:
           f"uninterrupted one-process run's bit for bit (deterministic "
           f"algorithms)", flush=True)
 
-    # 3. one step on the card against the CPU; the phases' times
-    _card_vs_cpu_step(teacher_path, gpu)
+    # 4. the card half of the step against the CPU's; the phases' times
+    t0 = time.perf_counter()
+    thread.join()
+    waited = time.perf_counter() - t0
+    if "error" in cpu_half:
+        raise cpu_half["error"]
+    t0 = time.perf_counter()
+    _card_vs_cpu_step(teacher_path, cpu_half["out"], gpu)
+    print(f"phase8 the step at batch 2: CPU half {cpu_half['s']:.1f} s on a "
+          f"thread beside runs b and c ({waited:.1f} s waited for after "
+          f"them), card half and comparison {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    del cpu_half["out"]
+    t0 = time.perf_counter()
     _phase_times(teacher_path, gpu)
+    print(f"phase8 the phases' times in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    # 4. the export CLI on the checkpoint's params_G_ema
+    # 5. the export CLI on the checkpoint's params_G_ema
     root = os.path.join(tmp, "train_export")
     _write_pairs(root, ((256, 256), (300, 200)), SEED + 400)
     reset_launch_counts()
@@ -1950,7 +2019,7 @@ FFHQ_RES = 256
 # to the split at entry 10,000, then FFHQ_TRAIN_ITEMS distinct images for
 # the train split
 FFHQ_EVAL_ITEMS, FFHQ_SPLIT, FFHQ_TRAIN_ITEMS = 128, 10000, 64
-FFHQ_TICK_STEPS = 4       # ticks of 4 steps, an evaluation at each from 1
+FFHQ_TICK_STEPS = 2       # ticks of 2 steps, an evaluation at each from 1
 FFHQ_EVALS = 2
 FFHQ_STEPS = FFHQ_TICK_STEPS * (FFHQ_EVALS + 1)
 FFHQ_METRIC = "fid10k_full_inpainting"
@@ -2212,6 +2281,361 @@ def phase_ffhq(tmp: str, gpu: str, teacher_path: str) -> None:
           f"cores; {gpu})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the fused k-step training call, CUDA-graph replays
+# ---------------------------------------------------------------------------
+
+FUSED_STEPS = 32          # R1 at steps 0 and 16 (d_reg_interval 16)
+FUSED_SPC = 8             # demo_places128's steps_per_call: a tick per call
+FUSED_BATCH = 32
+KD_STEPS = 16
+# the fused run's reserved device memory (the graphs' pool included) at
+# most this many times the sequential run's: the two captured patterns
+# share one pool, and the one warm-up's cached blocks are given back
+# before the captures
+FUSED_RESERVED_RATIO = 1.25
+# The training CLI with deterministic algorithms (as TRAIN_LAUNCHER) and
+# its train step's calls timed: argv[1] the record's path, argv[2]
+# "fused" or "step" (which class's calls), argv[3] the call to profile
+# (0-based); the CLI's arguments after them. Each call's host time (the
+# call's return, not the device's end) and its device time (CUDA events
+# on the stream); the profiled call under torch.profiler, from its start
+# to a synchronize after it: the device's busy share, the union of its
+# device events over that window. At the end, the allocator's peaks over
+# the process: allocated, and reserved (the graphs' private pool and the
+# blocks cached beside what is allocated included).
+FUSED_LAUNCHER = r"""
+import json
+import sys
+import time
+import torch
+torch.use_deterministic_algorithms(True)
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+from migan_tpu_torch.cli.trace import busy_union
+from migan_tpu_torch.cli.train import main
+from migan_tpu_torch.train import train_step
+
+record, which, profiled = sys.argv[1], sys.argv[2], int(sys.argv[3])
+cls = {"fused": train_step.FusedTrainStep, "step": train_step.TrainStep}[which]
+orig = cls.__call__
+calls, out = [], {}
+
+
+def timed(self, *args, **kwargs):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = orig(self, *args, **kwargs)
+    end.record()
+    calls.append((time.perf_counter() - t0, start, end))
+    return result
+
+
+def call(self, *args, **kwargs):
+    if len(calls) != profiled:
+        result = timed(self, *args, **kwargs)
+    else:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("train_call"):
+                result = timed(self, *args, **kwargs)
+                torch.cuda.synchronize()
+        events = prof.events()
+        win = next(e for e in events if e.name == "train_call"
+                   and e.device_type == DeviceType.CPU)
+        lo, hi = win.time_range.start, win.time_range.end
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == DeviceType.CUDA
+                 and e.name != "train_call"]
+        out["profiled"] = {"busy_us": busy_union(spans, (lo, hi)),
+                           "window_us": hi - lo, "events": len(spans)}
+    if which == "fused":
+        out["warm_up_s"] = self.warm_up_s
+        out["capture_s"] = {str(k): v for k, v in self.capture_s.items()}
+    return result
+
+
+cls.__call__ = call
+sys.argv = [sys.argv[0]] + sys.argv[4:]
+main(sys.argv[1:])
+torch.cuda.synchronize()
+out["calls"] = [(host, start.elapsed_time(end) / 1e3)
+                for host, start, end in calls]
+out["peak_gib"] = {"allocated": torch.cuda.max_memory_allocated() / 2**30,
+                   "reserved": torch.cuda.max_memory_reserved() / 2**30}
+with open(record, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _fused_argv(log_root: str, signature: str, steps: int,
+                experiment: str = "demo_places128") -> list:
+    """The training CLI's arguments: the experiment as configured, with
+    ticks of FUSED_SPC steps and the run directory under `log_root`."""
+    return ["--experiment", experiment, "--signature", signature,
+            "--max-steps", str(steps),
+            "--set", f"env.log_root_dir={log_root}",
+            "--set", f"train.kimg_per_tick={FUSED_SPC * FUSED_BATCH / 1000}"]
+
+
+def _fused_process(tmp: str, name: str, argv: list, which: str,
+                   profiled: int, one_rank: bool = False):
+    """`FUSED_LAUNCHER` in a process of its own (or as the one rank of an
+    NCCL group); returns (proc, out file, log path, record path)."""
+    record = os.path.join(tmp, f"{name}.json")
+    head = [record, which, str(profiled)]
+    launcher = (_one_rank(tmp, "fused_launcher", FUSED_LAUNCHER) if one_rank
+                else [sys.executable, "-c", FUSED_LAUNCHER])
+    log = os.path.join(tmp, f"{name}.log")
+    proc, out = _train_process(head + argv, log, launcher=launcher)
+    return proc, out, log, record
+
+
+def _fused_summary(what: str, log: str, record: str, steps_per_call: int,
+                   wall: float, gpu: str) -> dict:
+    """Prints a timed run's tick lines and numbers; returns them."""
+    with open(record) as f:
+        rec = json.load(f)
+    ticks = _tick_lines(log)
+    for line in ticks:
+        print(f"phase10 {what}: {line}", flush=True)
+    check(len(ticks) == FUSED_STEPS // FUSED_SPC,
+          f"phase10 {what}: {len(ticks)} ticks")
+    spk = [float(l.split("sec_per_kimg ")[1].split()[0]) for l in ticks]
+    devmem = max(float(l.split("devmem ")[1].split("g")[0]) for l in ticks)
+    # host and device time per step over steps 8-23 (ticks 1 and 2, one
+    # R1 step among them) in both modes: not the first call (start-up,
+    # and in fused mode the captures), not the profiled last one
+    calls = rec["calls"][FUSED_SPC // steps_per_call:
+                         (FUSED_STEPS - FUSED_SPC) // steps_per_call]
+    n_steps = len(calls) * steps_per_call
+    host_ms = sum(h for h, _ in calls) * 1e3 / n_steps
+    dev_ms = sum(d for _, d in calls) * 1e3 / n_steps
+    prof = rec["profiled"]
+    busy = prof["busy_us"] / prof["window_us"]
+    idle_ms = (prof["window_us"] - prof["busy_us"]) / 1e3 / steps_per_call
+    peak = rec["peak_gib"]
+    got = {"spk": spk, "host_ms": host_ms, "dev_ms": dev_ms, "busy": busy,
+           "idle_ms": idle_ms, "devmem": devmem,
+           "reserved": peak["reserved"], "capture_s": rec.get("capture_s"),
+           "warm_up_s": rec.get("warm_up_s")}
+    print(f"phase10 {what}: s/kimg tick 0 (start-up"
+          + (" and captures" if steps_per_call > 1 else "")
+          + f" included) {spk[0]}, ticks 1-{len(spk) - 2} "
+          f"{', '.join(map(str, spk[1:-1]))}, tick {len(spk) - 1} (its last "
+          f"call profiled) {spk[-1]}; per step, host {host_ms:.2f} ms in the "
+          f"call (its return, not the device's end: it waits where the "
+          f"launch queue is full), device {dev_ms:.2f} ms (CUDA events), "
+          f"means over steps {FUSED_SPC}-{FUSED_STEPS - FUSED_SPC - 1} "
+          f"({len(calls)} calls, R1 at step 16); one call of "
+          f"{steps_per_call} step(s) under "
+          f"torch.profiler: device busy {prof['busy_us'] / 1e3:.1f} ms of a "
+          f"{prof['window_us'] / 1e3:.1f} ms window = {100 * busy:.2f}% "
+          f"({prof['events']} device events), idle {idle_ms:.2f} ms per "
+          f"step; peak device memory allocated {devmem:.2f} GiB (the "
+          f"ticks' devmem; {peak['allocated']:.2f} over the process), "
+          f"reserved {peak['reserved']:.2f} GiB (the allocator's peak over "
+          f"the process: the graphs' pool and the cached blocks included)"
+          + (f"; one warm-up step {rec['warm_up_s']:.2f} s, captures "
+             + ", ".join(f"{'with' if k == 'True' else 'without'} R1 "
+                         f"{v:.2f} s" for k, v in rec["capture_s"].items())
+             if rec.get("capture_s") else "")
+          + f"; {FUSED_STEPS} steps in {wall:.1f} s wall, process start to "
+          f"exit ({gpu})", flush=True)
+    return got
+
+
+def _adam_capturable_diff(steps: int = 8) -> dict:
+    """Adam as the port builds it on a card (capturable: the bias
+    corrections in float32 on the device) against torch's default (on the
+    host, in float64), from the same parameters and gradients
+    (demo_places128's hyperparameters, 2**22 elements, `steps` updates):
+    the largest distance and the share of elements that differ."""
+    from migan_tpu_torch.train.train_step import OptConfig, adam_hparams
+
+    lr, b1, b2, eps = adam_hparams(OptConfig(reg_interval=16, beta1=0.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    p0 = torch.randn(2 ** 22, device="cuda", generator=gen)
+    grads = [torch.randn(2 ** 22, device="cuda", generator=gen)
+             * 10.0 ** -(i % 4) for i in range(steps)]
+    params = {}
+    for capturable in (True, False):
+        p = torch.nn.Parameter(p0.clone())
+        opt = torch.optim.Adam([p], lr=lr, betas=(b1, b2), eps=eps,
+                               capturable=capturable)
+        for g in grads:
+            p.grad = g
+            opt.step()
+        params[capturable] = p.detach()
+    diff = (params[True] - params[False]).abs()
+    return {"max": float(diff.max()),
+            "share": float((diff > 0).float().mean()),
+            "step": float((params[False] - p0).abs().mean())}
+
+
+def phase_fused(tmp: str, gpu: str) -> None:
+    """`cli.train --experiment demo_places128` (full width, batch 32,
+    steps_per_call 8, u8 wire, native masks) with deterministic
+    algorithms, 32 steps of CUDA-graph replays, against the same run with
+    steps_per_call 1, bit for bit; a fused run SIGKILLed after its first
+    checkpoint and resumed as the one NCCL rank of torch.distributed.run,
+    bit-equal to the uninterrupted one; demo_places128_kd 16 steps with a
+    seeded full-width Co-Mod-GAN-128 teacher from
+    `cli.make_random_teacher` (default algorithms); Adam capturable
+    against its default."""
+    import glob
+    import signal
+
+    import numpy as np
+
+    from migan_tpu_torch.cli import make_random_teacher
+    from migan_tpu_torch.train import checkpoint as ckpt
+
+    torch.cuda.empty_cache()
+    adam = _adam_capturable_diff()
+    print(f"phase10 Adam capturable (the port's on a card) against torch's "
+          f"default, same parameters and gradients, 8 updates of 2**22 "
+          f"elements: max |diff| {adam['max']:.3e}, "
+          f"{100 * adam['share']:.2f}% of elements differ (mean |update| "
+          f"{adam['step']:.3e}; {gpu})", flush=True)
+
+    runs = {}
+    for what, which, spc in (("fused", "fused", FUSED_SPC),
+                             ("sequential", "step", 1)):
+        root = os.path.join(tmp, f"fused_{what}")
+        argv = _fused_argv(root, what, FUSED_STEPS)
+        if spc == 1:
+            argv += ["--set", "train.steps_per_call=1"]
+        t0 = time.perf_counter()
+        proc, out, log, record = _fused_process(
+            tmp, f"fused_{what}", argv, which,
+            FUSED_STEPS // spc - 1)
+        _check_train_run(proc, out, log, f"phase10 {what} run")
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        captures = text.count("captured as a CUDA graph")
+        check(captures == (2 if spc > 1 else 0),
+              f"phase10 {what}: {captures} captures logged")
+        check("one after another" not in text,
+              f"phase10 {what}: the loop says it ignores steps_per_call")
+        runs[what] = _fused_summary(what, log, record, spc, wall, gpu)
+        final = ckpt.latest(os.path.join(_run_dir(root), "weight"))
+        check(final.endswith(f"step_{FUSED_STEPS:08d}"),
+              f"phase10 {what}: {final}")
+        runs[what]["state"] = ckpt.load(final)
+        with open(os.path.join(_run_dir(root), "stats.jsonl")) as f:
+            rows = [json.loads(l) for l in f]
+        runs[what]["rows"] = rows
+    fused, seq = runs["fused"], runs["sequential"]
+    diff = _state_equal(fused["state"], seq["state"])
+    check(not diff, f"phase10: the fused run differs from the sequential "
+          f"one at {diff[:10]}")
+    losses = [{k: v for k, v in r.items() if k.startswith("Loss/")}
+              for r in fused["rows"]]
+    check(losses == [{k: v for k, v in r.items() if k.startswith("Loss/")}
+                     for r in seq["rows"]],
+          "phase10: the runs' stats.jsonl loss moments differ")
+    check(all(np.isfinite(v["mean"]) for r in losses for v in r.values()),
+          f"phase10: losses {losses}")
+    r1 = [r.get("Loss/r1_penalty", {}).get("num") for r in fused["rows"]]
+    check(r1 == [1.0, None, 1.0, None], f"phase10: R1 stats per tick {r1}")
+    check(fused["reserved"] <= FUSED_RESERVED_RATIO * seq["reserved"],
+          f"phase10: the fused run reserved {fused['reserved']:.2f} GiB, "
+          f"the sequential {seq['reserved']:.2f} (at most "
+          f"{FUSED_RESERVED_RATIO}x)")
+    print(f"phase10 fused (steps_per_call {FUSED_SPC}) and sequential runs: "
+          f"final G, D, EMA, both Adam states, step and nimg equal bit for "
+          f"bit, and every tick's loss moments in stats.jsonl (R1 reported "
+          f"in the ticks of steps 0 and 16 only); host ms per step "
+          f"{fused['host_ms']:.2f} fused / {seq['host_ms']:.2f} sequential, "
+          f"device ms per step {fused['dev_ms']:.2f} / {seq['dev_ms']:.2f}, "
+          f"busy {100 * fused['busy']:.2f}% / {100 * seq['busy']:.2f}%, idle "
+          f"ms per step {fused['idle_ms']:.2f} / {seq['idle_ms']:.2f}, peak "
+          f"device memory allocated {fused['devmem']:.2f} / "
+          f"{seq['devmem']:.2f} GiB, reserved {fused['reserved']:.2f} / "
+          f"{seq['reserved']:.2f} GiB (at most {FUSED_RESERVED_RATIO}x) "
+          f"({gpu})", flush=True)
+
+    # killed after its first checkpoint, then resumed as one NCCL rank
+    root_b = os.path.join(tmp, "fused_b")
+    proc, out, log_b, _ = _fused_process(
+        tmp, "fused_b", _fused_argv(root_b, "b", FUSED_STEPS), "fused", -1)
+    # the KD run's seeded teacher, on the host while run b trains
+    teacher = make_random_teacher.main([
+        "--resolution", "128", "--seed", str(SEED + 10),
+        "--out", os.path.join(tmp, "comodgan_128_seeded.npz")])
+    killed_at = None
+    deadline = time.time() + 900
+    while proc.poll() is None and time.time() < deadline:
+        weight = glob.glob(os.path.join(root_b, "*", "weight"))
+        if weight and ckpt.latest(weight[0]):
+            proc.send_signal(signal.SIGKILL)
+            killed_at = sorted(os.listdir(weight[0]))
+            break
+        time.sleep(0.05)
+    proc.wait(timeout=60)
+    out.close()
+    check(killed_at is not None, "phase10: run b ended before its first "
+          "checkpoint")
+    run_b = _run_dir(root_b)
+    resumed_from = ckpt.latest(os.path.join(run_b, "weight"))
+    root_c = os.path.join(tmp, "fused_c")
+    t0 = time.perf_counter()
+    proc, out, log_c, _ = _fused_process(
+        tmp, "fused_c", _fused_argv(root_c, "c", FUSED_STEPS)
+        + ["--resume-path", os.path.join(run_b, "weight")], "fused", -1,
+        one_rank=True)
+    _check_train_run(proc, out, log_c, "phase10 resumed run")
+    wall_c = time.perf_counter() - t0
+    with open(log_c) as f:
+        text = f.read()
+    check(ONE_RANK_LINE in text and text.count("captured as a CUDA graph")
+          == 2, f"phase10 run c: no {ONE_RANK_LINE!r} line or not 2 "
+          f"captures\n{text[-2000:]}")
+    final_c = ckpt.latest(os.path.join(_run_dir(root_c), "weight"))
+    diff = _state_equal(fused["state"], ckpt.load(final_c))
+    check(not diff, f"phase10: the resumed run differs from the "
+          f"uninterrupted one at {diff[:10]}")
+    print(f"phase10 run b SIGKILLed with {killed_at} on disk, resumed from "
+          f"{os.path.basename(resumed_from)} to step {FUSED_STEPS} as one "
+          f"rank of torch.distributed.run ({ONE_RANK_LINE}; the gradients' "
+          f"all-reduce captured in both graphs; {wall_c:.1f} s wall): its "
+          f"final state equals the uninterrupted fused run's bit for bit",
+          flush=True)
+
+    # the KD config with the seeded teacher, default algorithms
+    root_kd = os.path.join(tmp, "fused_kd")
+    log_kd = os.path.join(tmp, "fused_kd.log")
+    t0 = time.perf_counter()
+    proc, out = _train_process(
+        _fused_argv(root_kd, "kd", KD_STEPS, "demo_places128_kd")
+        + ["--set", f"train.image_level_kd_kwargs.teacher1_path={teacher}",
+           "--set", "train.snapshot.checkpoint=null"],
+        log_kd, launcher=[sys.executable, "-m", "migan_tpu_torch.cli.train"])
+    _check_train_run(proc, out, log_kd, "phase10 KD run")
+    wall_kd = time.perf_counter() - t0
+    with open(log_kd) as f:
+        text = f.read()
+    check(text.count("captured as a CUDA graph") == 2
+          and "Loaded teacher 1 (CoModGAN)" in text,
+          f"phase10 KD run: teacher or captures missing\n{text[-2000:]}")
+    with open(os.path.join(_run_dir(root_kd), "stats.jsonl")) as f:
+        kd = [json.loads(l)["Loss/G/kd_l1_image_level_loss"]["mean"]
+              for l in f]
+    check(len(kd) == KD_STEPS // FUSED_SPC and all(np.isfinite(kd)),
+          f"phase10 KD run: kd losses {kd}")
+    print(f"phase10 demo_places128_kd {KD_STEPS} steps (fused, default "
+          f"algorithms, the seeded Co-Mod-GAN-128 teacher from "
+          f"cli.make_random_teacher): KD L1 per tick "
+          f"{', '.join(f'{v:.4f}' for v in kd)}; "
+          + "; ".join(l.split("  D/loss")[0] + "  " + l.split("  ")[-1]
+                      for l in _tick_lines(log_kd))
+          + f"; {wall_kd:.1f} s wall ({gpu})", flush=True)
+
+
 def _numel(state_dict: dict) -> int:
     return sum(v.numel() for v in state_dict.values())
 
@@ -2265,6 +2689,8 @@ def main() -> int:
         took(8)
         phase_ffhq(tmp, gpu, teacher)
         took(9)
+        phase_fused(tmp, gpu)
+        took(10)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

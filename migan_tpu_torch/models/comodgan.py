@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops import get_unit, setup_filter, upsample2d
+from ..ops import device_filter, get_unit, upsample2d
 from .migan import DenseLayer, minibatch_std, randn
 from .stylegan import (
     Conv2dLayer, DiscrimBlock, MappingConfig, MappingNetwork,
@@ -76,7 +76,7 @@ class CoModGANConfig:
         return get_unit(self.activation)
 
     def filt(self, device=None) -> torch.Tensor:
-        return setup_filter(list(self.resample_filter), device=device)
+        return device_filter(self.resample_filter, device)
 
     @property
     def num_ws(self) -> int:

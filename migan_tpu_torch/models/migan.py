@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from .. import parallel
-from ..ops import conv2d_resample, get_unit, setup_filter, upsample2d
+from ..ops import conv2d_resample, device_filter, get_unit, upsample2d
 
 NOISE_MODES = ("random", "const", "none")
 
@@ -76,7 +76,7 @@ class MiganConfig:
         return get_unit(self.activation)
 
     def filt(self, device=None) -> torch.Tensor:
-        return setup_filter(list(self.resample_filter), device=device)
+        return device_filter(self.resample_filter, device)
 
 
 def randn(shape, generator: torch.Generator, device,

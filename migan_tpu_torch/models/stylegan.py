@@ -27,7 +27,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops import conv2d_resample, get_unit, setup_filter, upsample2d
+from ..ops import (conv2d_resample, device_filter, get_unit, setup_filter,
+                   upsample2d)
 from .migan import DenseLayer, minibatch_std, randn
 
 NOISE_MODES = ("random", "const", "none")
@@ -286,7 +287,7 @@ class StyleGANConfig:
         return get_unit(self.activation)
 
     def filt(self, device=None) -> torch.Tensor:
-        return setup_filter(list(self.resample_filter), device=device)
+        return device_filter(self.resample_filter, device)
 
     @property
     def num_ws(self) -> int:

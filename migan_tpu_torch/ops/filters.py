@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,6 +28,18 @@ def setup_filter(f, gain: float = 1.0, device=None) -> torch.Tensor:
         f = np.outer(f, f)
     f = f / f.sum() * (gain ** (f.ndim / 2))
     return torch.tensor(f, dtype=torch.float32, device=device)
+
+
+def device_filter(taps, device=None) -> torch.Tensor:
+    """`setup_filter(taps)` on `device`, made once per taps and device and
+    shared by every caller, who must not write to it: a CUDA graph cannot
+    copy a filter from the host at each forward, it reads this one."""
+    return _device_filter(tuple(taps), str(torch.device(device or "cpu")))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_filter(taps: tuple, device: str) -> torch.Tensor:
+    return setup_filter(list(taps), device=device)
 
 
 def parse_scaling(scaling):

@@ -20,6 +20,14 @@ batch, so the collectives are explicit:
 
 Without a process group every helper is the identity (or nothing); with a
 group of one rank each still calls its collective, whose result is exact.
+
+A fused training call on a card (`train.train_step.FusedTrainStep`)
+captures a step into a CUDA graph, and with it the step's NCCL
+collectives (the gradients' all-reduce, the gather and its backward):
+NCCL's kernels run on a stream that joins the capture, and the graph
+replays them. The communicator must exist before the capture; the
+capture's eager warm-up step makes it. gloo is never captured: it serves
+the CPU, where the fused call runs its steps eagerly.
 Spatial (image-height) sharding is not ported.
 """
 

@@ -11,6 +11,16 @@ RNG continues at the same absolute item positions, and each step's noise
 comes from a `torch.Generator` seeded from (seed, absolute step index),
 so a killed and resumed run replays the uninterrupted one.
 
+`train.steps_per_call` k > 1 (`migan_tpu/train/loop.py:345-358,393-444`):
+the loop buffers k batches, stages them to the device in one copy and
+makes one call of `make_fused_train_step` (CUDA-graph replays on a card).
+In both modes the steps' stats stay on the device until the tick
+boundary; there they are averaged over the ranks and read in one go,
+R1's keys dropped for the steps where R1 did not run. `batch_idx` and
+the images seen advance by k per call, so ticks, snapshots and
+checkpoints fall after whole calls, as in the JAX package. The k steps draw the sequential loop's noise seeds,
+so both modes train on one stream.
+
 Data parallelism (`migan_tpu/train/loop.py:266-337`): `train.batch_size`
 is the global batch, split evenly over the ranks of a torch.distributed
 group. Rank p loads, in blocks of local_batch / grad_accum_rounds items,
@@ -49,8 +59,9 @@ from ..utils import stats as training_stats
 from ..utils.logging import print_log
 from . import checkpoint as ckpt
 from .loss import KDConfig, LossConfig
-from .train_step import (OptConfig, TrainConfig, TrainState,
-                         init_train_state, make_train_step)
+from .train_step import (R1_KEYS, R1_RAN, OptConfig, TrainConfig,
+                         TrainState, full_stats, init_train_state,
+                         make_fused_train_step, make_train_step)
 
 
 def _train_config_from_cfg(cfgt: Dict[str, Any]) -> TrainConfig:
@@ -236,6 +247,31 @@ def _run_metrics(state: TrainState, ctx: dict, log_dir: str
     return fid_value
 
 
+def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`: on a card by one copy from pinned memory
+    that does not wait for the device's queue."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _report_calls(calls: list) -> None:
+    """Reports the calls' stats (a fused call's stacked rows, or one
+    step's row of `full_stats`) row by row, in step order, each averaged
+    over the ranks (`stacked_mean_across_ranks`), without R1's keys where
+    R1 did not run (`migan_tpu/train/loop.py:397-409`)."""
+    if not calls:
+        return
+    host = training_stats.stacked_mean_across_ranks(calls)
+    r1_ran = host.pop(R1_RAN)
+    for i, ran in enumerate(r1_ran):
+        row = {k: v[i] for k, v in host.items()
+               if ran >= 0.5 or k not in R1_KEYS}
+        training_stats._default_registry.report_dict(row)
+    calls.clear()
+
+
 def step_seed(seed: int, step: int) -> int:
     """The seed of the noise generator of absolute step `step`."""
     return int(np.random.SeedSequence([seed, 0x5EED, step]).generate_state(
@@ -304,14 +340,16 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
                         start_position=state.step * batch_size
                         + proc * block,
                         position_stride=n_proc, position_block=block)
-    step_fn = make_train_step(g_cfg, d_cfg, tcfg, teacher=teacher)
+    spc = int(cfgt.get("steps_per_call") or 1)
+    if spc > 1:
+        fused_fn = make_fused_train_step(g_cfg, d_cfg, tcfg, teacher=teacher,
+                                         steps_per_call=spc, device=device)
+    else:
+        step_fn = make_train_step(g_cfg, d_cfg, tcfg, teacher=teacher)
     d_reg_interval = cfgt.get("d_reg_interval") or 0
     wire = cfgt.get("wire_format") or "f32"
     if wire not in ("f32", "u8"):
         raise ValueError(f"train.wire_format must be f32|u8, got {wire!r}")
-    if int(cfgt.get("steps_per_call") or 1) != 1:
-        print_log("train.steps_per_call: the port runs its steps one after "
-                  "another (the same stream as the fused program)")
 
     # ----- loop ------------------------------------------------------------
     total_kimg = cfgt.get("total_kimg", 25000)
@@ -330,6 +368,8 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
     ckpt_dir = osp.join(log_dir, "weight")
     drew_init = not is_chief
     done = False
+    step_buf: list = []       # buffered (real, mask) host batches (spc > 1)
+    pending_stats: list = []  # the calls' stats, on the device
     stats_path = osp.join(log_dir, "stats.jsonl") if is_chief else os.devnull
     with open(stats_path, "at") as stats_jsonl:
         for x, mask, _uid in loader:
@@ -343,16 +383,33 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
                 _save_image_grid(x * m, osp.join(log_dir, "erased.png"))
             xw, mw = _encode_wire(np.asarray(x), np.asarray(mask[..., None]),
                                   wire)
-            batch = {"real": torch.from_numpy(xw).to(device),
-                     "mask": torch.from_numpy(mw).to(device)}
-            gen = torch.Generator(device).manual_seed(step_seed(seed,
-                                                                batch_idx))
-            do_dr1 = d_reg_interval > 0 and batch_idx % d_reg_interval == 0
-            stats = step_fn(state, batch, gen, do_dr1=do_dr1)
-            training_stats._default_registry.report_dict(
-                training_stats.mean_across_ranks(stats))
-            cur_nimg += batch_size
-            batch_idx += 1
+            if spc > 1:
+                step_buf.append((xw, mw))
+                if len(step_buf) < spc:
+                    continue
+                batch = {
+                    "real": _stage(np.stack([r for r, _ in step_buf]),
+                                   device),
+                    "mask": _stage(np.stack([m for _, m in step_buf]),
+                                   device)}
+                # the buffered steps' absolute indices seed their noise
+                seeds = [step_seed(seed, batch_idx + i) for i in range(spc)]
+                pending_stats.append(fused_fn(state, batch, seeds))
+                step_buf.clear()
+                cur_nimg += batch_size * spc
+                batch_idx += spc
+            else:
+                batch = {"real": torch.from_numpy(xw).to(device),
+                         "mask": torch.from_numpy(mw).to(device)}
+                gen = torch.Generator(device).manual_seed(
+                    step_seed(seed, batch_idx))
+                do_dr1 = (d_reg_interval > 0
+                          and batch_idx % d_reg_interval == 0)
+                pending_stats.append(full_stats(
+                    step_fn(state, batch, gen, do_dr1=do_dr1), do_dr1,
+                    device))
+                cur_nimg += batch_size
+                batch_idx += 1
             done = (cur_nimg >= total_kimg * 1000
                     or (max_steps is not None and batch_idx >= max_steps))
             if not done and cur_nimg < (tick_start_nimg
@@ -362,6 +419,7 @@ def train_stage(cfg: Dict[str, Any], max_steps: Optional[int] = None,
             # ---- tick maintenance (reference migan_default.py:429-585) ---
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+            _report_calls(pending_stats)
             tick_time = time.time() - tick_start_time
             collector.update()
             resources = _resource_stats(device)

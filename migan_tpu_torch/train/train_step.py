@@ -27,14 +27,19 @@ batch's (`models.migan.randn`); each phase's gradients are averaged over
 the ranks (`parallel.all_reduce_mean`) before they are sanitized and
 applied, which is the JAX package's gradient of the global mean.
 
-The JAX package's `make_fused_train_step` (k steps in one program) has no
-counterpart: the loop runs the steps one after another, which its own
-tests hold equal to the fused program.
+`make_fused_train_step` (the JAX package's k steps in one program) runs
+`steps_per_call` steps per call: on the CPU one `TrainStep` after another,
+on a card as replays of CUDA graphs captured from `TrainStep.run`, one
+graph for each R1 pattern (`FusedTrainStep`). So that a replay is the
+eager step, the step's state on a card is what a graph can replay: Adam
+is `capturable` (its step count and bias corrections are device tensors)
+and the EMA's beta is a device scalar, in the sequential step too.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +49,7 @@ from torch import nn
 
 from .. import parallel
 from ..models import migan
+from ..utils.logging import print_log
 from . import loss as losses
 
 
@@ -84,9 +90,49 @@ def adam_hparams(opt: OptConfig) -> Tuple[float, float, float, float]:
 def make_optimizer(params, opt: OptConfig) -> torch.optim.Adam:
     """Adam with the lazy-regularization mb_ratio applied to lr and betas
     (torch's update is optax.adam's: bias-corrected moments, eps outside
-    the square root)."""
+    the square root). On a card it is `capturable`: its step count lives
+    on the device and the bias corrections are computed there in float32,
+    so that a CUDA graph can replay the update (the default computes them
+    on the host in float64, which a graph would freeze)."""
+    params = list(params)
     lr, b1, b2, eps = adam_hparams(opt)
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+                            capturable=any(p.is_cuda for p in params))
+
+
+def init_adam_state(opt: torch.optim.Adam) -> None:
+    """Adam's per-parameter state as its first `step()` makes it (step 0,
+    zero moments), for every parameter that has none. A capture must find
+    it made: a captured `step()` that made it would zero it at every
+    replay."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if not st:
+                st["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if group["capturable"] else "cpu")
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+def load_adam(opt: torch.optim.Adam, sd: Dict) -> None:
+    """`opt.load_state_dict(sd)`, keeping `opt`'s own `capturable` (a
+    state dict carries its writer's): a checkpoint written on a card
+    loads on the CPU and the reverse, the step count moved to where the
+    update reads it."""
+    capturable = opt.defaults["capturable"]
+    opt.load_state_dict(sd)
+    for group in opt.param_groups:
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if capturable else "cpu",
+                    dtype=torch.float32)
 
 
 def _accum_grads(loss_fn: Callable, params: Sequence[torch.Tensor],
@@ -174,8 +220,8 @@ class TrainState:
         self.G.load_state_dict(sd["params_G"])
         self.D.load_state_dict(sd["params_D"])
         self.G_ema.load_state_dict(sd["params_G_ema"])
-        self.opt_G.load_state_dict(sd["opt_G"])
-        self.opt_D.load_state_dict(sd["opt_D"])
+        load_adam(self.opt_G, sd["opt_G"])
+        load_adam(self.opt_D, sd["opt_D"])
         self.step, self.nimg = int(sd["step"]), int(sd["nimg"])
 
 
@@ -208,12 +254,17 @@ def ema_beta(nimg: int, cfg: TrainConfig) -> float:
                                      / max(ema_nimg, np.float32(1e-8))))
 
 
-@torch.no_grad()
 def ema_update(G: nn.Module, G_ema: nn.Module, nimg: int,
                cfg: TrainConfig) -> None:
-    """G_ema <- G + beta (G_ema - G) for every parameter (in place);
-    buffers (noise_const) copied verbatim."""
-    beta = ema_beta(nimg, cfg)
+    """The EMA after `nimg` images (`ema_lerp` with `ema_beta`)."""
+    ema_lerp(G, G_ema, ema_beta(nimg, cfg))
+
+
+@torch.no_grad()
+def ema_lerp(G: nn.Module, G_ema: nn.Module, beta) -> None:
+    """G_ema <- G + beta (G_ema - G) for every parameter (in place),
+    `beta` a float or a 0-d tensor on G's device; buffers (noise_const)
+    copied verbatim."""
     for p, e in zip(G.parameters(), G_ema.parameters()):
         e.copy_(p + beta * (e - p))
     for b, e in zip(G.buffers(), G_ema.buffers()):
@@ -297,19 +348,38 @@ class TrainStep:
         _reduce_and_apply(state.opt_D, params, grads)
         return stats
 
-    def ema_phase(self, state: TrainState, nimg: int) -> None:
-        ema_update(state.G, state.G_ema, nimg, self.cfg)
+    def beta(self, nimg: int, device: torch.device):
+        """The EMA's beta after `nimg` images: a float on the CPU, a 0-d
+        float32 tensor on a card (where a captured step reads it, so the
+        sequential step reads it there too)."""
+        beta = ema_beta(nimg, self.cfg)
+        if device.type == "cpu":
+            return beta
+        return torch.full((), beta, dtype=torch.float32, device=device)
+
+    def ema_phase(self, state: TrainState, beta) -> None:
+        ema_lerp(state.G, state.G_ema, beta)
+
+    def run(self, state: TrainState, real: torch.Tensor, mask: torch.Tensor,
+            generator: torch.Generator, do_dr1: bool, beta
+            ) -> Dict[str, torch.Tensor]:
+        """The device work of one step on a decoded batch, the EMA with
+        `beta` (`self.beta`); `state.step` and `state.nimg` are the
+        caller's to advance. What `FusedTrainStep` captures."""
+        stats = self.g_phase(state, real, mask, generator)
+        stats.update(self.d_phase(state, real, mask, generator))
+        if do_dr1:
+            stats.update(self.r1_phase(state, real, mask))
+        self.ema_phase(state, beta)
+        return stats
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
                  generator: torch.Generator, *, do_dr1: bool = False
                  ) -> Dict[str, torch.Tensor]:
         real, mask = decode_batch(batch["real"], batch["mask"])
-        stats = self.g_phase(state, real, mask, generator)
-        stats.update(self.d_phase(state, real, mask, generator))
-        if do_dr1:
-            stats.update(self.r1_phase(state, real, mask))
         nimg = state.nimg + real.shape[0] * parallel.world()
-        self.ema_phase(state, nimg)
+        stats = self.run(state, real, mask, generator, do_dr1,
+                         self.beta(nimg, real.device))
         state.step += 1
         state.nimg = nimg
         return stats
@@ -320,3 +390,188 @@ def make_train_step(g_cfg: migan.MiganConfig, d_cfg: migan.MiganConfig,
     """The step of `TrainStep`, with the teacher in either form of
     `normalize_teacher`."""
     return TrainStep(g_cfg, d_cfg, cfg, normalize_teacher(teacher))
+
+
+# R1's stats, zero in a fused call's rows where R1 did not run, and the row
+# that says where it ran (the JAX package's fused program's names)
+R1_KEYS = ("Loss/r1_penalty", "Loss/D/reg")
+R1_RAN = "Misc/r1_ran"
+
+
+def full_stats(stats: Dict[str, torch.Tensor], do_dr1: bool,
+                device) -> Dict[str, torch.Tensor]:
+    """One step's row of stats: `stats` with R1's keys (zero where R1
+    did not run) and R1_RAN, in one order for both R1 patterns, float32
+    0-d tensors on `device`."""
+    out = {k: v.float() for k, v in stats.items()}
+    for k in R1_KEYS:
+        if k not in out:
+            out[k] = torch.zeros((), device=device)
+    out[R1_RAN] = torch.full((), float(do_dr1), device=device)
+    return out
+
+
+@dataclass
+class _Captured:
+    graph: "torch.cuda.CUDAGraph"
+    stats: torch.Tensor          # the step's stats row, [len(keys)]
+
+
+class FusedTrainStep:
+    """`steps_per_call` optimizer steps of a `TrainStep` per call, the
+    port of the JAX package's `make_fused_train_step`:
+    ``fused(state, batch, seeds) -> stats``, `state` updated in place.
+
+    batch: {"real": [k, N, H, W, 3], "mask": [k, N, H, W, 1]} in either
+    wire format; seeds: the k steps' noise seeds (`loop.step_seed` of
+    their absolute step indices, as the sequential loop seeds its
+    generators). R1 runs where (state.step + i) % d_opt.reg_interval == 0,
+    the JAX program's `lax.cond`. stats: {name: [k] float32 tensor} with
+    R1's keys in every row (zero where R1 did not run) and R1_RAN (1
+    where it ran).
+
+    It runs on `device`, where the batches must lie. On the CPU the k
+    steps are `TrainStep` calls one after another (the plain version). On
+    a card each step is a replay of a CUDA graph captured from
+    `TrainStep.run`, one graph for each R1 pattern (without R1 and, when
+    `d_opt.reg_interval` is set, with it), both made at the first call;
+    the graphs share one memory pool. A replay reads its batch, the
+    EMA's beta and its noise seed from static inputs: the batch and beta
+    are copied there on the device, and the generator the graphs were
+    captured with (registered with both) is reseeded before each replay,
+    which replays the eager stream. Before the captures, one step runs
+    eagerly on a copy of the state on a side stream (cuDNN's and cuBLAS's
+    plans, the NCCL communicator, the cached filters), with R1 where R1
+    is scheduled, so that it runs every op of both patterns, and both
+    Adams' state is made (`init_adam_state`). One warm-up for both, and
+    both captures after it: the blocks an eager step caches cannot be
+    reused by a graph's pool, and a warm-up beside a captured graph's
+    pool would double the footprint. A failed capture or replay raises;
+    nothing falls back to eager steps. `warm_up_s` and `capture_s` (by
+    pattern) hold those times in seconds.
+    """
+
+    def __init__(self, step: TrainStep, steps_per_call: int, device):
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call {steps_per_call} < 1")
+        self.step, self.k = step, steps_per_call
+        self.device = torch.device(device)
+        self.interval = step.cfg.d_opt.reg_interval
+        self.warm_up_s: Optional[float] = None
+        self.capture_s: Dict[bool, float] = {}
+        self._graphs: Dict[bool, _Captured] = {}
+        self._keys: Optional[List[str]] = None
+        self._pool = None
+        self._static: Optional[Dict] = None
+
+    def do_dr1(self, step: int) -> bool:
+        return bool(self.interval) and step % self.interval == 0
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 seeds: Sequence[int]) -> Dict[str, torch.Tensor]:
+        real_k, mask_k = batch["real"], batch["mask"]
+        if not (real_k.shape[0] == mask_k.shape[0] == len(seeds) == self.k):
+            raise ValueError(f"a call takes {self.k} steps: got batches "
+                             f"{real_k.shape[0]}, {mask_k.shape[0]} and "
+                             f"{len(seeds)} seeds")
+        if real_k.device.type != self.device.type:
+            raise ValueError(f"batch on {real_k.device}, the step runs on "
+                             f"{self.device}")
+        if self.device.type == "cpu":
+            rows = []
+            for i in range(self.k):
+                do = self.do_dr1(state.step)
+                stats = self.step(
+                    state, {"real": real_k[i], "mask": mask_k[i]},
+                    torch.Generator().manual_seed(int(seeds[i])), do_dr1=do)
+                rows.append(full_stats(stats, do, "cpu"))
+            return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return self._replay(state, real_k, mask_k, seeds)
+
+    def _replay(self, state, real_k, mask_k, seeds):
+        if not self._graphs:
+            self._capture(state, real_k[0], mask_k[0])
+        x = self._static
+        if real_k.shape[1:] != x["real"].shape or \
+                mask_k.shape[1:] != x["mask"].shape:
+            raise ValueError(f"batch {tuple(real_k.shape[1:])} is not "
+                             f"the captured {tuple(x['real'].shape)}")
+        rows = []
+        for i in range(self.k):
+            x["real"].copy_(real_k[i])
+            x["mask"].copy_(mask_k[i])
+            nimg = state.nimg + real_k.shape[1] * parallel.world()
+            x["beta"].fill_(ema_beta(nimg, self.step.cfg))
+            x["gen"].manual_seed(int(seeds[i]))
+            captured = self._graphs[self.do_dr1(state.step)]
+            captured.graph.replay()
+            rows.append(captured.stats.clone())
+            state.step += 1
+            state.nimg = nimg
+        return dict(zip(self._keys, torch.stack(rows, dim=1)))
+
+    def _capture(self, state: TrainState, real: torch.Tensor,
+                 mask: torch.Tensor) -> None:
+        """The warm-up, then both patterns' captures, from the static
+        inputs (set to `real`, `mask`). `torch.cuda.graph` gives the
+        warm-up's cached blocks back before it captures."""
+        dev = real.device
+        self._static = x = {"real": real.clone(), "mask": mask.clone(),
+                            "beta": torch.zeros((), device=dev),
+                            "gen": torch.Generator(dev)}
+        init_adam_state(state.opt_G)
+        init_adam_state(state.opt_D)
+        patterns = (True, False) if self.interval else (False,)
+        t0 = time.perf_counter()
+        self._warm_up(state, patterns[0])
+        self.warm_up_s = time.perf_counter() - t0
+        print_log(f"fused step: one eager warm-up step "
+                  f"{'with' if patterns[0] else 'without'} R1 in "
+                  f"{self.warm_up_s:.2f} s")
+        for do_dr1 in patterns:
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(x["gen"])
+            with torch.cuda.graph(graph, pool=self._pool):
+                r, m = decode_batch(x["real"], x["mask"])
+                stats = full_stats(
+                    self.step.run(state, r, m, x["gen"], do_dr1,
+                                  x["beta"]), do_dr1, dev)
+                row = torch.stack(list(stats.values()))
+            if self._keys is None:
+                self._keys = list(stats)
+            elif self._keys != list(stats):
+                raise RuntimeError(f"R1 pattern {do_dr1}: stats "
+                                   f"{list(stats)}, the other pattern's "
+                                   f"{self._keys}")
+            self._pool = graph.pool()
+            self._graphs[do_dr1] = _Captured(graph, row)
+            torch.cuda.synchronize(dev)
+            self.capture_s[do_dr1] = time.perf_counter() - t0
+            print_log(f"fused step: the step "
+                      f"{'with' if do_dr1 else 'without'} R1 captured as "
+                      f"a CUDA graph in {self.capture_s[do_dr1]:.2f} s")
+
+    def _warm_up(self, state: TrainState, do_dr1: bool) -> None:
+        """One step, eagerly, on a copy of `state` on a side stream, from
+        the static inputs."""
+        dev = self._static["real"].device
+        twin = copy.deepcopy(state)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            r, m = decode_batch(self._static["real"], self._static["mask"])
+            self.step.run(twin, r, m, torch.Generator(dev).manual_seed(0),
+                          do_dr1, self._static["beta"])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+
+
+def make_fused_train_step(g_cfg: migan.MiganConfig, d_cfg: migan.MiganConfig,
+                          cfg: TrainConfig, teacher=None,
+                          steps_per_call: int = 8,
+                          device="cuda") -> FusedTrainStep:
+    """`FusedTrainStep` of `make_train_step(g_cfg, d_cfg, cfg, teacher)` on
+    `device`: graph replays on a card, eager steps on the CPU."""
+    return FusedTrainStep(make_train_step(g_cfg, d_cfg, cfg, teacher),
+                          steps_per_call, device)

@@ -4,16 +4,17 @@
 `report(name, value)` accumulates [count, sum, sum of squares] per name;
 a `Collector` snapshot gives the mean and std since its last update.
 Values arrive as Python floats or tensors (moved to the host here);
-non-finite values are dropped, as the reference does. Under data
-parallelism a step's stats are its ranks' means (`mean_across_ranks`)
-before they are reported, so that they read as one process's over the
-global batch.
+non-finite values are dropped, as the reference does. The training
+loop keeps its steps' stats on the device until a tick boundary, then
+averages them over the ranks and reads them in one go
+(`stacked_mean_across_ranks`), so that under data parallelism they read
+as one process's over the global batch.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -24,21 +25,25 @@ def _host(value) -> np.ndarray:
     return np.asarray(value, np.float64).reshape(-1)
 
 
-def mean_across_ranks(stats: Dict[str, "torch.Tensor"]) -> Dict[str, float]:
-    """Each scalar stat averaged over the ranks of the process group (one
-    all-reduce in float64; every rank passes the same names in the same
-    order), as floats; without a group, the values as floats."""
+def stacked_mean_across_ranks(calls: List[Dict[str, "torch.Tensor"]]
+                              ) -> Dict[str, np.ndarray]:
+    """The stats of several calls ({name: [k] or 0-d tensor} each, a
+    fused call's k rows or one step's row; the same names in the same
+    order on every rank), each row averaged over the ranks: one
+    all-reduce in float64 of all of them and one read to the host.
+    Returns {name: [rows] float64 array}, the calls' rows in order;
+    without a group, the values as they are."""
     import torch
 
     from .. import parallel
 
-    names = list(stats)
-    if not parallel.is_initialized():
-        return {k: float(stats[k]) for k in names}
-    dev = parallel.collective_device()
-    v = torch.stack([torch.as_tensor(stats[k]).to(dev, torch.float64)
-                     for k in names])
-    return dict(zip(names, parallel.all_reduce_mean([v])[0].tolist()))
+    names = list(calls[0])
+    dev = (parallel.collective_device() if parallel.is_initialized()
+           else calls[0][names[0]].device)
+    v = torch.stack([torch.cat([c[k].reshape(-1) for c in calls])
+                     .to(dev, torch.float64) for k in names])
+    v = parallel.all_reduce_mean([v])[0].cpu().numpy()
+    return dict(zip(names, v))
 
 
 class StatsRegistry:

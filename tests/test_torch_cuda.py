@@ -8,12 +8,19 @@ no JAX, so it runs on a machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
+The fused training call (`train_step.FusedTrainStep`) on the card: its
+CUDA-graph replays under deterministic algorithms are bit-equal to the
+sequential steps (tolerance: none), and a step that cannot be captured
+raises.
+
 Tolerances: float32 rtol/atol 1e-4, the same float32 sums in another order
 (the kernels' three-pass TF32 product keeps ~22 bits; atol 1e-3 in the
 clamp case, whose partial sums reach the hundreds). bfloat16 atol 0.05 +
 rtol 0.02: the kernels keep f32 where the plain path rounds after each of
 its ~6 ops (bf16 keeps 8 bits).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +39,9 @@ MAIN_SHAPES = sorted(set(kernel_shapes(GeneratorConfig(resolution=512))),
                      key=str)
 
 pytestmark = pytest.mark.cuda
+# cuBLAS's deterministic workspace (the fused-step tests run with
+# deterministic algorithms), read when cuBLAS is first used
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -501,3 +511,108 @@ def test_exported_chain_runs_the_kernels_on_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert launch_counts() == {"sepconv": 3, "downblock": 2, "upblock": 2}
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the fused training call: CUDA-graph replays of the train step
+# ---------------------------------------------------------------------------
+
+def _fused_setup(dev):
+    """A 16 px training state on the card at step 2 (R1 every 3 steps),
+    its `TrainStep` with a small KD teacher, and 6 steps' batches (uint8
+    wire format) with the loop's seeds."""
+    from migan_tpu_torch.models import comodgan, migan
+    from migan_tpu_torch.train import loop, loss, train_step
+
+    net = migan.MiganConfig(resolution=16, ch_base=512, depthwise=True,
+                            reparametrize=True, num_reparam_tensors=2)
+    gen = torch.Generator().manual_seed(0)
+    G = migan.generator_init(net, gen).to(dev)
+    D = migan.discriminator_init(net, gen).to(dev)
+    teacher = comodgan.generator_init(
+        comodgan.CoModGANConfig(resolution=16, ch_base=128, ch_max=32),
+        gen).to(dev).eval().requires_grad_(False)
+    cfg = train_step.TrainConfig(
+        batch_size=4, ema_kimg=0.01, ema_rampup=0.05,
+        d_opt=train_step.OptConfig(reg_interval=3),
+        loss=loss.LossConfig(kd=loss.KDConfig(start_resolution=8)))
+    state = train_step.state_from_modules(G, D, cfg)
+    state.step = 2
+    step = train_step.make_train_step(
+        net, net, cfg,
+        teacher=(comodgan.make_teacher_apply(teacher.cfg), teacher))
+    rng = np.random.RandomState(1)
+    real = torch.from_numpy(rng.randint(0, 256, (6, 4, 16, 16, 3),
+                                        np.uint8)).to(dev)
+    mask = torch.from_numpy((rng.rand(6, 4, 16, 16, 1) > 0.4).astype(
+        np.uint8)).to(dev)
+    seeds = [loop.step_seed(0, 2 + i) for i in range(6)]
+    return state, step, real, mask, seeds
+
+
+def test_fused_replays_equal_the_sequential_steps(dev):
+    """2 calls of 3 steps (R1 at steps 3 and 6, inside each call; the
+    EMA's beta ramped up, so it moves from step to step) against 6
+    sequential steps with the loop's generators, under deterministic
+    algorithms: G, D, the EMA, both Adam states and the stats equal bit
+    for bit; each R1 pattern was captured once."""
+    import copy
+
+    from migan_tpu_torch.train import train_step
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        state_a, step, real, mask, seeds = _fused_setup(dev)
+        state_b = copy.deepcopy(state_a)
+        rows = []
+        for i in range(6):
+            do = state_a.step % 3 == 0
+            rows.append(step(state_a, {"real": real[i], "mask": mask[i]},
+                             torch.Generator(dev).manual_seed(seeds[i]),
+                             do_dr1=do))
+        fused = train_step.FusedTrainStep(step, 3, dev)
+        got = [fused(state_b, {"real": real[c * 3:c * 3 + 3],
+                               "mask": mask[c * 3:c * 3 + 3]},
+                     seeds[c * 3:c * 3 + 3]) for c in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert sorted(fused.capture_s) == [False, True]
+    assert state_b.step == state_a.step == 8
+    a, b = state_a.state_dict(), state_b.state_dict()
+    for name in ("params_G", "params_D", "params_G_ema"):
+        for k, v in a[name].items():
+            assert torch.equal(b[name][k], v), (name, k)
+    for name in ("opt_G", "opt_D"):
+        for i, st in a[name]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(b[name]["state"][i][k], v), (name, i, k)
+    ran = torch.cat([g[train_step.R1_RAN] for g in got]).tolist()
+    assert ran == [0, 1, 0, 0, 1, 0]
+    for i, stats in enumerate(rows):
+        for k, v in stats.items():
+            assert torch.equal(got[i // 3][k][i % 3], v.float()), (i, k)
+
+
+def test_fused_capture_that_fails_raises(dev, monkeypatch):
+    """A step that reads a value to the host cannot be captured: the call
+    raises, and no step ran eagerly in its place."""
+    from migan_tpu_torch.train import train_step
+
+    state, step, real, mask, seeds = _fused_setup(dev)
+    orig = train_step.TrainStep.run
+
+    def run(self, *a, **kw):
+        stats = orig(self, *a, **kw)
+        float(stats["Loss/G/loss"])           # a host read
+        return stats
+
+    monkeypatch.setattr(train_step.TrainStep, "run", run)
+    before = {k: v.clone() for k, v in state.G.state_dict().items()}
+    fused = train_step.FusedTrainStep(step, 3, dev)
+    with pytest.raises(RuntimeError):
+        fused(state, {"real": real[:3], "mask": mask[:3]}, seeds[:3])
+    torch.cuda.synchronize()
+    assert state.step == 2 and state.nimg == 0
+    for k, v in state.G.state_dict().items():
+        assert torch.equal(v, before[k]), k

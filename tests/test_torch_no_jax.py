@@ -4,7 +4,8 @@ through the kernel chain, the demo's file readers and writer on a PNG, the
 app pipeline, a served request in each of the server's modes and the
 evaluation CLI, the export CLI (training weights folded, the kernel
 chain exported), the create_pipeline CLI (a bucket and the dynamic
-program), one step of the training CLI, a native mask, an ffhqzip
+program), one step of the training CLI and one fused call of two steps,
+a native mask, an ffhqzip
 item, an in-loop metric evaluation with a random detector, and a 1-rank
 gloo group's gather and gradient all-reduce, and finds neither in
 sys.modules. `chip_smoke.py` names neither
@@ -142,6 +143,10 @@ with tempfile.TemporaryDirectory() as d:
     from migan_tpu_torch.cli import train
     assert train.main(["--experiment", "t", "--config-root", f"{d}/cfg",
                        "--device", "cpu", "--max-steps", "1"]).step == 1
+    # and two steps as one fused call (train.steps_per_call)
+    assert train.main(["--experiment", "t", "--config-root", f"{d}/cfg",
+                       "--device", "cpu", "--max-steps", "2", "--set",
+                       "train.steps_per_call=2"]).step == 2
 
     # one native mask, one ffhqzip item (with a native mask), and one
     # metric evaluation with a random detector; the detector's features

@@ -14,6 +14,9 @@ gloo group through `parallel.maybe_initialize_distributed` and runs
     all-reduced gradients (as `_apply` receives them) and the ranks' mean
     stats. `local_mbstd` swaps in a per-rank minibatch-std (the
     reference's DDP statistic), the control.
+  - fused: `fused_calls`, the fused k-step calls of the nets in `inp`
+    on this rank's rows of each step's batch; saves the final state and
+    the ranks' mean stacked stats.
   - d: the discriminator's logits of this rank's rows.
   - train: `train_stage` of a config, 3 steps; saves the final state.
   - evaluate: the evaluate CLI; rank 0 saves the per-item results.
@@ -86,7 +89,7 @@ def _rows(t):
 def step(inp, out):
     from migan_tpu_torch.models import comodgan, migan
     from migan_tpu_torch.train import loss, train_step
-    from migan_tpu_torch.utils.stats import mean_across_ranks
+    from migan_tpu_torch.utils.stats import stacked_mean_across_ranks
 
     a = torch.load(inp, weights_only=False)
     if a["local_mbstd"]:
@@ -109,9 +112,44 @@ def step(inp, out):
         teacher=(comodgan.make_teacher_apply(teacher.cfg), teacher))
     stats = fn(state, {"real": _rows(a["real"]), "mask": _rows(a["mask"])},
                torch.Generator().manual_seed(a["seed"]), do_dr1=True)
-    stats = mean_across_ranks(stats)
+    stats = {k: float(v[0])
+             for k, v in stacked_mean_across_ranks([stats]).items()}
     torch.save({"grads": applied, "stats": stats, "nimg": state.nimg},
                f"{out}.{parallel.rank()}")
+
+
+def fused_calls(a):
+    """(final state dict, stats) of the fused calls of `a` ("k" steps a
+    call from step "start", R1 every "interval" steps, KD) on this
+    rank's rows of each of "batches" with "seeds", on the CPU; the stats
+    are the calls' stacked stats, the ranks' means."""
+    from migan_tpu_torch.models import comodgan
+    from migan_tpu_torch.train import loss, train_step
+    from migan_tpu_torch.utils.stats import stacked_mean_across_ranks
+
+    cfg = train_step.TrainConfig(
+        **a["ema"], d_opt=train_step.OptConfig(reg_interval=a["interval"]),
+        loss=loss.LossConfig(kd=loss.KDConfig(**a["kd"])))
+    G, D, teacher = a["G"], a["D"], a["teacher"]
+    state = train_step.state_from_modules(G, D, cfg)
+    state.step = a["start"]
+    fused = train_step.make_fused_train_step(
+        G.cfg, D.cfg, cfg,
+        teacher=(comodgan.make_teacher_apply(teacher.cfg), teacher),
+        steps_per_call=a["k"], device="cpu")
+    k, calls = a["k"], []
+    for c in range(len(a["batches"]) // k):
+        part = a["batches"][c * k:(c + 1) * k]
+        calls.append(fused(state, {
+            "real": torch.stack([_rows(r) for r, _ in part]),
+            "mask": torch.stack([_rows(m) for _, m in part])},
+            a["seeds"][c * k:(c + 1) * k]))
+    return state.state_dict(), stacked_mean_across_ranks(calls)
+
+
+def fused(inp, out):
+    state, stats = fused_calls(torch.load(inp, weights_only=False))
+    torch.save({"state": state, "stats": stats}, f"{out}.{parallel.rank()}")
 
 
 def d(inp, out):
@@ -153,6 +191,7 @@ if __name__ == "__main__":
     else:
         parallel.maybe_initialize_distributed("cpu")
         try:
-            {"step": step, "d": d, "train": train}[role](inp, out)
+            {"step": step, "fused": fused, "d": d,
+             "train": train}[role](inp, out)
         finally:
             parallel.destroy()
