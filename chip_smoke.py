@@ -122,7 +122,22 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      over one call under torch.profiler, peak memory allocated and
      reserved (the fused run's reserved at most 1.25x the sequential
      run's), the warm-up's and the captures' time; and the distance of
-     Adam's capturable update from its default.
+     Adam's capturable update from its default;
+ 11. holds the kernels' options against their plain versions: fused_block
+     with skip, with the pointwise prologue and with both, at the JAX
+     tests' shapes (Cin = C = 128, and Cin 8 -> 128) and migan-512's
+     (fromrgb's Cin = 4 into the top encoder conv1; skip and a Cin = 128
+     prologue at the 256 level), fused_up_block with the phase input of
+     `pw_up2_phase` at the JAX test's shape and migan-512's two top
+     synthesis levels; float32 within 1e-4 and 3x the plain float32
+     version's distance from float64, bf16 within 0.05 + 0.02 relative
+     of the plain version in float32 on the same inputs; times each at
+     migan-512's shapes at N = 1 and 8 with its bound; runs
+     `cli/fir_fold.py` (the up-2 FIR in upblock's stencil against folded
+     into the pointwise conv, batch 32, both dtypes) and the prologue
+     A/B (fromrgb then fused_block against one fused_block with fromrgb
+     as its prologue, N = 1 and 8, both dtypes), each from launch counts
+     of 0, which must show their kernel.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -340,7 +355,7 @@ def phase_kernels(results: dict) -> None:
                 wants = want if isinstance(want, tuple) else (want,)
                 err = max(max_err(a, b, dtype, f"{name} {label}")
                           for a, b in zip(outs, wants))
-                bound_ms, bound_by = bound(case.args, outs, case.flops,
+                bound_ms, bound_by = bound(case.inputs, outs, case.flops,
                                            dtype)
                 dt = str(dtype)[6:]
                 print(f"phase1 time {name} {label} {dt}: kernel {ms:.4f} "
@@ -391,9 +406,19 @@ class Case:
         fn = {"sepconv": sepconv.sepconv_plain,
               "downblock": downblock.downblock_plain,
               "upblock": upblock.upblock_plain}[self.name]
-        args = self.args if dtype is None else tuple(
-            None if a is None else a.to(dtype) for a in self.args)
-        return fn(*args, **self.kw)
+
+        def cast(a):
+            return (a.to(dtype) if dtype is not None
+                    and isinstance(a, torch.Tensor) else a)
+
+        return fn(*map(cast, self.args),
+                  **{k: cast(v) for k, v in self.kw.items()})
+
+    @property
+    def inputs(self) -> tuple:
+        """Every input tensor, positional and keyword (the options')."""
+        return tuple(a for a in (*self.args, *self.kw.values())
+                     if isinstance(a, torch.Tensor))
 
 
 def main_path_cases(n: int, dtype) -> list:
@@ -450,14 +475,14 @@ def _errors(got, truth) -> dict:
     return {"max": d.max().item(), "mean": d.mean().item()}
 
 
-def float64_check(case: Case) -> dict:
+def float64_check(case: Case, phase: int = 1) -> dict:
     """The kernel's and the plain float32 version's max and mean distance
     from the plain version in float64; fails when the kernel's is beyond
     F64_ERR_FACTOR times the plain version's."""
     truth = case.plain(torch.float64)
     k, p = _errors(case.kernel(), truth), _errors(case.plain(), truth)
     ratio = {s: k[s] / p[s] for s in ("max", "mean")}
-    print(f"phase1 float64 {case.name} {case.label}: kernel max "
+    print(f"phase{phase} float64 {case.name} {case.label}: kernel max "
           f"{k['max']:.3e} mean {k['mean']:.3e}, plain float32 max "
           f"{p['max']:.3e} mean {p['mean']:.3e}, ratio "
           f"{ratio['max']:.2f}x / {ratio['mean']:.2f}x", flush=True)
@@ -2636,6 +2661,224 @@ def phase_fused(tmp: str, gpu: str) -> None:
           + f"; {wall_kd:.1f} s wall ({gpu})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the kernels' options, the FIR-fold A/B and the prologue A/B
+# ---------------------------------------------------------------------------
+
+def option_cases(n: int, dtype, real: bool) -> list:
+    """`Case`s of the options, the option last in each label: at the JAX
+    tests' shapes (tests/test_pallas_{sepconv,upblock}.py), or at
+    migan-512's (real): the top encoder conv1 with fromrgb as its
+    prologue (the generator's 4-channel input), the encoder conv1 at 256
+    with skip and with a prologue of Cin = C = 128, and the two top
+    synthesis levels' upblocks with the phase input of `pw_up2_phase`
+    (rgb only at the top, as the main path calls it). Seeded inputs made
+    on the card."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 100 + n + real)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def sep(c, o):
+        return r(3, 3, c, scale=1 / 3), r(c, scale=1 / 3), r(c, o,
+                                                             scale=c ** -.5)
+
+    def pre(cin, c):
+        return {"w_pre": r(cin, c, scale=cin ** -.5), "b_pre": r(c,
+                                                                 scale=.1)}
+
+    def sep_case(h, cin, c, o, kind, noise):
+        kw = dict(pre(cin, c)) if "prologue" in kind else {}
+        if "skip" in kind:
+            kw["skip"] = r(n, h, h, cin)
+        args = (r(n, h, h, cin), *sep(c, o),
+                *((r(h, h, scale=.1),) if noise else ()))
+        flops = 2 * n * h * h * c * (o + (cin if "prologue" in kind else 0))
+        return Case("sepconv", f"[{n},{h},{h},{cin}]->{c}->{o} {kind}",
+                    args, flops, kw)
+
+    def up_case(hl, wl, c, o, emit, rgb):
+        args = (r(n, hl, wl, 4 * c), r(n, 2 * hl, 2 * wl, c),
+                r(2 * hl, 2 * wl, scale=.3), *sep(c, o),
+                r(2 * hl, 2 * wl, scale=.3),
+                *((r(o, 3, scale=o ** -.5), r(3, scale=.1)) if rgb else ()))
+        out = "feat+rgb" if emit and rgb else "feat" if emit else "rgb only"
+        return Case("upblock", f"x4 [{n},{hl},{wl},{4 * c}]->{o} {out} "
+                    f"phase_input", args, 2 * n * 4 * hl * wl * c * o,
+                    {"emit_features": emit, "phase_input": True})
+
+    if not real:
+        return [sep_case(32, 128, 128, 64, k, True)
+                for k in ("skip", "prologue", "skip+prologue")] + [
+            sep_case(32, 8, 128, 128, "prologue", False),
+            up_case(8, 16, 128, 128, True, False)]
+    return [sep_case(512, 4, 64, 64, "prologue", False),
+            sep_case(256, 128, 128, 128, "skip", False),
+            sep_case(256, 128, 128, 128, "prologue", False),
+            up_case(256, 256, 64, 64, False, True),
+            up_case(128, 128, 128, 128, True, True)]
+
+
+def _outs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _option_row(case: Case, dtype, results: dict, time_it: bool) -> dict:
+    """Hold the case's kernel against its plain version; with time_it its
+    kernel and plain ms and bound. Returns the row for the kernels
+    line."""
+    outs = _outs(case.kernel())
+    torch.cuda.synchronize()
+    what = f"{case.name} {case.label}"
+    dt = str(dtype)[6:]
+    row = {"option": case.label.split(" ")[-1], "shape": case.label,
+           "dtype": dt, "library_ms": None}
+    if dtype == torch.float32:
+        wants = case.plain()
+    else:
+        # the options' plain compositions round two or three times more
+        # than the kernels (x + skip; the prologue's conv, bias and act;
+        # the phase input's noise and act): the reference is the plain
+        # version in float32 on the same bf16 inputs, and the kernel may
+        # be at most BF16_FACTOR times as far from it in relative L2 as
+        # the plain bfloat16 version
+        wants = case.plain(torch.float32)
+        rel = [max(relative_l2(a, b) for a, b in zip(t, _outs(wants)))
+               for t in (outs, _outs(case.plain()))]
+        print(f"phase11 {what} {dt}: relative L2 to the plain version in "
+              f"float32: kernel {rel[0]:.4e}, plain bfloat16 {rel[1]:.4e}",
+              flush=True)
+        check(rel[0] <= BF16_FACTOR * rel[1],
+              f"{what} {dt}: kernel {rel[0]:.4e} from float32, beyond "
+              f"{BF16_FACTOR} x the plain path's {rel[1]:.4e}")
+        row.update(rel_l2_vs_f32=rel[0], plain_bf16_rel_l2_vs_f32=rel[1])
+    err = max(max_err(a, b, dtype, what)
+              for a, b in zip(outs, _outs(wants)))
+    row["max_abs_err"] = err
+    if dtype == torch.float32:
+        results[case.name]["max_abs_err"] = max(
+            results[case.name]["max_abs_err"], err)
+    if time_it:
+        ms, plain_ms = cuda_ms(case.kernel), cuda_ms(case.plain)
+        bound_ms, bound_by = bound(case.inputs, outs, case.flops, dtype)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print(f"phase11 time {what} {dt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"bound/kernel {bound_ms / ms:.3f}, max|diff| {err:.3e}",
+              flush=True)
+    else:
+        print(f"phase11 {what} {dt}: max|diff| {err:.3e}", flush=True)
+    return row
+
+
+def _prologue_ab(n: int, dtype, gpu: str) -> dict:
+    """migan-512's top encoder conv1 from the generator's input: A the
+    main path's order, fromrgb (1x1 conv + bias, cuDNN) and its act, then
+    fused_block; B one fused_block with fromrgb as its prologue. B held
+    against A in float32; in bf16 against the plain version in float32 on
+    the same inputs (A rounds z three times, B not at all: `_option_row`),
+    with max |B - A| printed. Then both timed in turns (A, B, B, A)."""
+    from migan_tpu_torch.ops.kernels import sepconv
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 200 + n)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    x = r(n, 512, 512, 4)
+    w_pre, b_pre = r(4, 64, scale=.5), r(64, scale=.1)
+    w = (r(3, 3, 64, scale=1 / 3), r(64, scale=1 / 3), r(64, 64,
+                                                         scale=.125))
+
+    def a():
+        z = sepconv.ACT(sepconv.conv2d(x, w_pre[None, None]) + b_pre)
+        return sepconv.fused_block(z, *w)
+
+    def b():
+        return sepconv.fused_block(x, *w, w_pre=w_pre, b_pre=b_pre)
+
+    what = f"prologue A/B [{n},512,512,4]->64 {str(dtype)[6:]}"
+    if dtype == torch.float32:
+        err = max_err(b(), a(), dtype, what)
+    else:
+        f = [t.float() for t in (x, *w)]
+        want = sepconv.sepconv_plain(*f, w_pre=w_pre.float(),
+                                     b_pre=b_pre.float())
+        max_err(b(), want, dtype, what)
+        err = (b() - a()).float().abs().max().item()
+    a1 = cuda_ms(a)
+    b1 = cuda_ms(b)
+    b2 = cuda_ms(b)
+    a2 = cuda_ms(a)
+    row = {"N": n, "dtype": str(dtype)[6:], "A_fromrgb_then_kernel_ms":
+           (a1 + a2) / 2, "B_kernel_with_prologue_ms": (b1 + b2) / 2,
+           "B_vs_A_max_abs_diff": err, "card": gpu}
+    print(f"phase11 {what}: A fromrgb + fused_block {a1:.4f} / {a2:.4f} "
+          f"ms, B fused_block(w_pre, b_pre) {b1:.4f} / {b2:.4f} ms, B/A "
+          f"{(b1 + b2) / (a1 + a2):.3f}, max|B - A| {err:.3e}", flush=True)
+    return row
+
+
+def phase_options(results: dict, gpu: str) -> None:
+    """Each option against its plain version on the card (float32: 1e-4
+    and within 3x plain float32's distance from float64; bf16 0.05 +
+    0.02 relative) at the JAX tests' shapes and migan-512's; their times
+    at N = 1 and 8; then `cli/fir_fold.py` and the prologue A/B, each
+    driven with the counts set to 0 just before it."""
+    from migan_tpu_torch.cli import fir_fold
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    for k in results:
+        results[k].setdefault("options", [])
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in option_cases(2, dtype, real=False):
+            row = _option_row(case, dtype, results, time_it=False)
+            if dtype == torch.float32:
+                row.update(float64_check(case, 11))
+            results[case.name]["options"].append(row)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 8):
+            for case in option_cases(n, dtype, real=True):
+                row = _option_row(case, dtype, results, time_it=True)
+                if dtype == torch.float32 and n == 1:
+                    row.update(float64_check(case, 11))
+                results[case.name]["options"].append(row)
+            torch.cuda.empty_cache()
+
+    # the FIR-fold A/B through its CLI: migan-512's two top synthesis
+    # levels, batch 32, float32 and bf16
+    reset_launch_counts()
+    fold = fir_fold.run("cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["upblock"] > 0 and counts["sepconv"] == 0,
+          f"fir_fold: launches {counts}")
+    check(len(fold) == 4 and all(
+        isinstance(r[k], float) for r in fold for k in fir_fold.KEYS),
+        "fir_fold: a level or a key is missing")
+    record_path(results, "fir_fold", counts)
+    results["upblock"]["fir_fold"] = fold
+    torch.cuda.empty_cache()
+
+    # the prologue A/B, N = 1 and 8, float32 and bf16
+    reset_launch_counts()
+    ab = [_prologue_ab(n, dtype, gpu)
+          for dtype in (torch.float32, torch.bfloat16) for n in (1, 8)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["sepconv"] > 0, f"prologue A/B: launches {counts}")
+    record_path(results, "prologue A/B", counts)
+    results["sepconv"]["prologue_ab"] = ab
+    print(f"phase11 launches: fir_fold "
+          f"{results['upblock']['launches_by_path']['fir_fold']}, prologue "
+          f"A/B {counts}", flush=True)
+
+
 def _numel(state_dict: dict) -> int:
     return sum(v.numel() for v in state_dict.values())
 
@@ -2691,6 +2934,8 @@ def main() -> int:
         took(9)
         phase_fused(tmp, gpu)
         took(10)
+        phase_options(results, gpu)
+        took(11)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

@@ -1,6 +1,8 @@
 // Fused SeparableConv2d body for Hopper (sm_90a):
 //
-//     out = [act] ( pw1x1( act( dw3x3(x) + b_dw ) ) [+ noise] )
+//     z   = x [+ skip]                    or, with the prologue,
+//     z   = act( (x [+ skip]) . w_pre + b_pre )            Cin -> C
+//     out = [act] ( pw1x1( act( dw3x3(z) + b_dw ) ) [+ noise] )
 //
 // Replaces two TPU kernels of migan_tpu, which compute the same function in
 // two TPU layouts: migan_tpu/ops/pallas/sepconv.py:fused_block (flat rows,
@@ -36,30 +38,68 @@
 // low levels at batch 1. plan.py picks the largest tile that still gives
 // a full wave, and orders the blocks output-tile first so that the blocks
 // that read the same x run together and share it through L2.
+//
+// The options (MODE, a template argument, so the main path's kernel is
+// compiled as before):
+//   skip      the skip window is staged beside x in each chunk's x stage
+//             and added in phase 1 before the taps;
+//   prologue  z's chunk is recomputed per chunk from the input window:
+//             the block's three segments of x (+ skip) with all Cin
+//             channels, loaded once into shared f32 (plain loads: at
+//             Cin = 4 in bf16 a pixel is 8 bytes, too few for a 16-byte
+//             copy). Each thread computes act(x . w_pre + b_pre) on the
+//             CUDA cores for the PPT + 2 window values of its run in each
+//             of three rows, about 3 (1 + 2 / PPT) times the block's
+//             pixels, Cin FMAs each: cheap at Cin <= 8, comparable to the
+//             main product at Cin = 128 (PERF.md). The dw's zero padding
+//             applies to z, not to x: a window pixel outside the image
+//             would give act(b_pre), not 0, and the taps mask drops it,
+//             as it drops every out-of-image tap. The window grows with
+//             Cin; plan.py refuses a Cin whose window does not fit.
+// z stays f32 up to the taps (x + skip too, which the TPU kernel adds in
+// the storage type): in bfloat16 the options round only where the main
+// path does, the pointwise operand and the output, where their plain
+// compositions round two or three times more.
 #include "pointwise_tc.cuh"
 
 using namespace migan;
 using namespace migan::tc;
 
+namespace {
+constexpr int MODE_PLAIN = 0, MODE_SKIP = 1, MODE_PROLOGUE = 2;
+}  // namespace
+
 // The stencil input of one chunk: the three flat segments of TP + 2
 // pixels that hold every 3x3 tap of the block's pixels, rows h - 1, h and
-// h + 1 (a tap (dy, dx) of flat pixel p is p + dy W + dx).
-template <typename T, typename G>
+// h + 1 (a tap (dy, dx) of flat pixel p is p + dy W + dx); with skip the
+// skip's segments follow x's in each stage. The prologue keeps instead
+// one f32 window of the segments with all Cin input channels.
+template <typename T, typename G, int MODE>
 struct SepX {
   static constexpr int SEG = G::TP + 2;
-  static constexpr int BYTES = sizeof(T) * 3 * SEG * KC;  // one stage
-  static constexpr int SMEM = Ring<T, G>::BYTES + 2 * BYTES;
+  static constexpr int WIN = 3 * SEG;  // window pixels
+  static constexpr int NSRC = MODE == MODE_SKIP ? 2 : 1;
+  static constexpr int BYTES =  // one stage
+      MODE == MODE_PROLOGUE ? 0 : sizeof(T) * NSRC * WIN * KC;
+  static int smem(int cin) {
+    return Ring<T, G>::BYTES + (MODE == MODE_PROLOGUE
+                                    ? (int)sizeof(float) * WIN * cin
+                                    : 2 * BYTES);
+  }
 };
 
-template <typename T, typename G>
+template <typename T, typename G, int MODE>
 __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
-    sepconv_kernel(const T* __restrict__ x, const T* __restrict__ wdw,
-                   const T* __restrict__ bdw, const T* __restrict__ wpw,
-                   const T* __restrict__ noise, T* __restrict__ out, int N,
-                   int H, int W, int C, int O, int final_act) {
-  using X = SepX<T, G>;
+    sepconv_kernel(const T* __restrict__ x, const T* __restrict__ skip,
+                   const T* __restrict__ wpre, const T* __restrict__ bpre,
+                   const T* __restrict__ wdw, const T* __restrict__ bdw,
+                   const T* __restrict__ wpw, const T* __restrict__ noise,
+                   T* __restrict__ out, int N, int H, int W, int Cin, int C,
+                   int O, int final_act) {
+  using X = SepX<T, G, MODE>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const X0 = reinterpret_cast<T*>(smem + Ring<T, G>::BYTES);
+  float* const Xp = reinterpret_cast<float*>(smem + Ring<T, G>::BYTES);
   constexpr int XE = X::BYTES / sizeof(T);
   constexpr int PPT = G::TP / (G::THREADS / KC);  // pixels per thread
   constexpr int VEC = 16 / sizeof(T);     // channels per cp.async
@@ -91,22 +131,46 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
     }
   }
 
-  // chunk k's x segments into x stage s; zeros outside [0, NP) and past C
-  // (C is a multiple of 8, so a vector lies wholly inside or outside)
-  auto xload = [&](int k, int s) {
-    T* const Xs = X0 + s * XE;
-    constexpr int VPP = KC / VEC;
-    for (int e = threadIdx.x; e < 3 * X::SEG * VPP; e += G::THREADS) {
-      const int m = e / VPP, v = e % VPP;
+  // the prologue's input window, once: x (+ skip) over the three
+  // segments, all Cin channels, 0 outside [0, NP) (the K loop's first
+  // barrier orders these stores before phase 1)
+  if constexpr (MODE == MODE_PROLOGUE) {
+    for (int e = threadIdx.x; e < X::WIN * Cin; e += G::THREADS) {
+      const int m = e / Cin, i = e % Cin;
       const int p = p0 + (m / X::SEG - 1) * W - 1 + m % X::SEG;
-      const int gc = k * KC + v * VEC;
-      const bool ok = p >= 0 && p < NP && gc < C;
-      cp_async16(Xs + m * KC + v * VEC, ok ? x + (long long)p * C + gc : x,
-                 ok);
+      float v = 0.f;
+      if (p >= 0 && p < NP) {
+        const long long a = (long long)p * Cin + i;
+        v = to_f(x[a]);
+        if (skip != nullptr) v += to_f(skip[a]);
+      }
+      Xp[e] = v;
+    }
+  }
+
+  // chunk k's x (and skip) segments into x stage s; zeros outside
+  // [0, NP) and past C (C is a multiple of 8, so a vector lies wholly
+  // inside or outside)
+  auto xload = [&](int k, int s) {
+    if constexpr (MODE != MODE_PROLOGUE) {
+      T* const Xs = X0 + s * XE;
+      constexpr int VPP = KC / VEC;
+      for (int e = threadIdx.x; e < X::NSRC * X::WIN * VPP;
+           e += G::THREADS) {
+        const int m = e / VPP, v = e % VPP;
+        const int mw = X::NSRC == 1 ? m : m % X::WIN;
+        const T* const src = X::NSRC == 1 || m < X::WIN ? x : skip;
+        const int p = p0 + (mw / X::SEG - 1) * W - 1 + mw % X::SEG;
+        const int gc = k * KC + v * VEC;
+        const bool ok = p >= 0 && p < NP && gc < C;
+        cp_async16(Xs + m * KC + v * VEC,
+                   ok ? src + (long long)p * C + gc : x, ok);
+      }
     }
   };
 
-  // phase 1: A[lp][c] = act(dw3x3(x) + b_dw); x is zero outside the image
+  // phase 1: A[lp][c] = act(dw3x3(z) + b_dw); a tap outside the image
+  // is dropped by the taps mask
   auto phase1 = [&](int k, int s, T* As, auto&& mid) {
     const T* const Xs = X0 + s * XE;
     const int gc = k * KC + c;
@@ -115,6 +179,7 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
 #pragma unroll
     for (int t = 0; t < 9; ++t) wk[t] = cok ? to_f(wdw[t * C + gc]) : 0.f;
     const float b = cok ? to_f(bdw[gc]) : 0.f;
+    const float bp = MODE == MODE_PROLOGUE && cok ? to_f(bpre[gc]) : 0.f;
     // a run of PPT pixels reads PPT + 2 values of each of the three rows
     float sum[PPT];
 #pragma unroll
@@ -122,9 +187,37 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
       float xr[PPT + 2];
+      const int m0 = dy * X::SEG + q0 * PPT;
+      if constexpr (MODE == MODE_PROLOGUE) {
+        // z = act(x . w_pre[:, gc] + b_pre[gc]), four input channels a
+        // step (Cin is a multiple of 4)
 #pragma unroll
-      for (int m = 0; m < PPT + 2; ++m)
-        xr[m] = to_f(Xs[(dy * X::SEG + q0 * PPT + m) * KC + c]);
+        for (int m = 0; m < PPT + 2; ++m) xr[m] = bp;
+        for (int i = 0; i < Cin; i += 4) {
+          float wv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            wv[u] = cok ? to_f(wpre[(long long)(i + u) * C + gc]) : 0.f;
+#pragma unroll
+          for (int m = 0; m < PPT + 2; ++m) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(Xp + (m0 + m) * Cin + i);
+            xr[m] = fmaf(xv.x, wv[0], xr[m]);
+            xr[m] = fmaf(xv.y, wv[1], xr[m]);
+            xr[m] = fmaf(xv.z, wv[2], xr[m]);
+            xr[m] = fmaf(xv.w, wv[3], xr[m]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < PPT + 2; ++m) xr[m] = act(xr[m]);
+      } else {
+#pragma unroll
+        for (int m = 0; m < PPT + 2; ++m) {
+          xr[m] = to_f(Xs[(m0 + m) * KC + c]);
+          if constexpr (MODE == MODE_SKIP)
+            xr[m] += to_f(Xs[(X::WIN + m0 + m) * KC + c]);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < PPT; ++j)
 #pragma unroll
@@ -162,38 +255,60 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
 }
 
 namespace {
-template <typename T, typename G>
+template <int MODE>
 struct Launch {
-  static int run(int blocks, int threads, int smem, const void* x,
-                 const void* wdw, const void* bdw, const void* wpw,
-                 const void* noise, void* out, int N, int H, int W, int C,
-                 int O, int final_act, cudaStream_t stream) {
-    const long long tiles = ((long long)N * H * W + G::TP - 1) / G::TP;
-    if (threads != G::THREADS || smem != SepX<T, G>::SMEM ||
-        blocks != tiles * ((O + G::TO - 1) / G::TO) || C % 8 != 0 ||
-        O % 8 != 0)
-      return (int)cudaErrorInvalidConfiguration;
-    const cudaError_t err = allow_smem(sepconv_kernel<T, G>, smem);
-    if (err != cudaSuccess) return (int)err;
-    sepconv_kernel<T, G><<<blocks, threads, smem, stream>>>(
-        (const T*)x, (const T*)wdw, (const T*)bdw, (const T*)wpw,
-        (const T*)noise, (T*)out, N, H, W, C, O, final_act);
-    return (int)cudaGetLastError();
-  }
+  template <typename T, typename G>
+  struct L {
+    static int run(int blocks, int threads, int smem, const void* x,
+                   const void* skip, const void* wpre, const void* bpre,
+                   const void* wdw, const void* bdw, const void* wpw,
+                   const void* noise, void* out, int N, int H, int W,
+                   int Cin, int C, int O, int final_act,
+                   cudaStream_t stream) {
+      using X = SepX<T, G, MODE>;
+      const long long tiles = ((long long)N * H * W + G::TP - 1) / G::TP;
+      const bool options_ok =
+          MODE == MODE_PROLOGUE
+              ? (Cin % 8 == 0 || Cin == 4) && wpre != nullptr &&
+                    bpre != nullptr
+              : Cin == C && (MODE == MODE_PLAIN) == (skip == nullptr);
+      if (threads != G::THREADS || smem != X::smem(Cin) ||
+          blocks != tiles * ((O + G::TO - 1) / G::TO) || !options_ok ||
+          C % 8 != 0 || O % 8 != 0)
+        return (int)cudaErrorInvalidConfiguration;
+      const cudaError_t err = allow_smem(sepconv_kernel<T, G, MODE>, smem);
+      if (err != cudaSuccess) return (int)err;
+      sepconv_kernel<T, G, MODE><<<blocks, threads, smem, stream>>>(
+          (const T*)x, (const T*)skip, (const T*)wpre, (const T*)bpre,
+          (const T*)wdw, (const T*)bdw, (const T*)wpw, (const T*)noise,
+          (T*)out, N, H, W, Cin, C, O, final_act);
+      return (int)cudaGetLastError();
+    }
+  };
 };
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; cfg, blocks, threads, smem: the launch
-// plan of migan_tpu_torch/ops/kernels/plan.py, checked here. noise may be
-// null; C and O are multiples of 8 and N*H*W < 2^31. Returns the CUDA
-// error code of the launch (0 = success).
+// plan of migan_tpu_torch/ops/kernels/plan.py, checked here; mode: 0 no
+// option, 1 skip, 2 the prologue (skip optional). noise may be null; x
+// (and skip) has Cin channels, Cin = C without the prologue, a multiple
+// of 8 or 4 with it; C and O are multiples of 8 and N*H*W < 2^31.
+// Returns the CUDA error code of the launch (0 = success).
 extern "C" int migan_sepconv(int dtype, int cfg, int blocks, int threads,
-                             int smem, const void* x, const void* wdw,
+                             int smem, int mode, const void* x,
+                             const void* skip, const void* wpre,
+                             const void* bpre, const void* wdw,
                              const void* bdw, const void* wpw,
                              const void* noise, void* out, int N, int H,
-                             int W, int C, int O, int final_act,
+                             int W, int Cin, int C, int O, int final_act,
                              void* stream) {
-  return dispatch<Launch, SepCfg0, SepCfg1, SepCfg2>(
-      dtype, cfg, blocks, threads, smem, x, wdw, bdw, wpw, noise, out, N, H,
-      W, C, O, final_act, (cudaStream_t)stream);
+#define MIGAN_SEP(M)                                                      \
+  dispatch<Launch<M>::L, SepCfg0, SepCfg1, SepCfg2>(                      \
+      dtype, cfg, blocks, threads, smem, x, skip, wpre, bpre, wdw, bdw, \
+      wpw, noise, out, N, H, W, Cin, C, O, final_act, (cudaStream_t)stream)
+  if (mode == MODE_PLAIN) return MIGAN_SEP(MODE_PLAIN);
+  if (mode == MODE_SKIP) return MIGAN_SEP(MODE_SKIP);
+  if (mode == MODE_PROLOGUE) return MIGAN_SEP(MODE_PROLOGUE);
+#undef MIGAN_SEP
+  return (int)cudaErrorInvalidValue;
 }

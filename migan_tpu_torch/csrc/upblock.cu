@@ -41,6 +41,15 @@
 // it writes its partial sums to a [O/TO, N*Hh*Wh, 3] f32 scratch and a
 // second small launch adds them in output-tile order. No float atomics, so
 // rgb is the same from run to run.
+//
+// Phase input (PHASE, a template argument, so the main path's kernel is
+// compiled as before): x is [N, Hl, Wl, 4C], the four up-sampling phases
+// of ops/conv.py:pw_up2_phase, which folds the FIR into the preceding
+// pointwise conv. Each chunk stages the four phase groups' channels
+// g * C + k * KC .. over the same x_lo window (4x its bytes), and step 1
+// becomes a select with no taps: t(h, w) = act(x4[h >> 1, w >> 1,
+// ((h & 1) * 2 + (w & 1)) * C + c] + noise_up) + skip, 0 outside the
+// image as above.
 #include "pointwise_tc.cuh"
 
 using namespace migan;
@@ -50,15 +59,17 @@ namespace {
 
 constexpr int CR = 3;  // rgb channels
 
-// Shared memory past the ring: two stages of the x_lo and skip windows,
-// t over its window (f32), and noise_up over the same window.
-template <typename T, typename G>
+// Shared memory past the ring: two stages of the x_lo (four phase
+// groups of it with PHASE) and skip windows, t over its window (f32), and
+// noise_up over the same window.
+template <typename T, typename G, bool PHASE>
 struct Up {
   static constexpr int TH = G::TH, TW = G::TP / G::TH;
   static constexpr int XH = TH / 2 + 2, XW = TW / 2 + 2;  // x_lo window
   static constexpr int SH = TH + 2, SW = TW + 2;          // t, skip window
+  static constexpr int XG = PHASE ? 4 : 1;  // x_lo values per pixel, chunk
   static constexpr int XPIX = XH * XW, SPIX = SH * SW;
-  static constexpr int STAGE_BYTES = sizeof(T) * (XPIX + SPIX) * KC;
+  static constexpr int STAGE_BYTES = sizeof(T) * (XG * XPIX + SPIX) * KC;
   static constexpr int T_BYTES = sizeof(float) * SPIX * KC;
   static constexpr int NZ_BYTES = sizeof(float) * SPIX;
   static constexpr int SMEM =
@@ -71,7 +82,7 @@ struct Up {
 
 }  // namespace
 
-template <typename T, typename G>
+template <typename T, typename G, bool PHASE>
 __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
     upblock_kernel(const T* __restrict__ x, const T* __restrict__ skip,
                    const T* __restrict__ noise_up, const T* __restrict__ wdw,
@@ -80,7 +91,7 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
                    const T* __restrict__ brgb, T* __restrict__ feat,
                    T* __restrict__ rgb, float* __restrict__ part, int N,
                    int Hl, int Wl, int C, int O) {
-  using U = Up<T, G>;
+  using U = Up<T, G, PHASE>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const S0 = reinterpret_cast<T*>(smem + Ring<T, G>::BYTES);
   float* const Tw = reinterpret_cast<float*>(smem + Ring<T, G>::BYTES +
@@ -101,7 +112,8 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
   pt /= tiles_w;
   const int h0 = (pt % tiles_h) * U::TH;
   const int n = pt / tiles_h;
-  const T* const xn = x + (long long)n * Hl * Wl * C;
+  const int XC = U::XG * C;  // x_lo's channels
+  const T* const xn = x + (long long)n * Hl * Wl * XC;
   const T* const sn = skip + (long long)n * Hh * Wh * C;
   const int c = threadIdx.x % KC;  // this thread's channel in a chunk
   const int q0 = threadIdx.x / KC;
@@ -116,23 +128,25 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
   }
 
   // chunk k's windows into stage s: x_lo window (r, q) is lo-res
-  // (h0/2 - 1 + r, w0/2 - 1 + q), then skip window (r, q) is hi-res
-  // (h0 - 1 + r, w0 - 1 + q); zeros outside the image and past C (C is a
-  // multiple of 8, so a vector lies wholly inside or outside)
+  // (h0/2 - 1 + r, w0/2 - 1 + q) (with PHASE its four groups g at
+  // (r, q) * 4 + g), then skip window (r, q) is hi-res (h0 - 1 + r,
+  // w0 - 1 + q); zeros outside the image and past C (C is a multiple of
+  // 8, so a vector lies wholly inside or outside)
   auto xload = [&](int k, int s) {
     T* const Xs = S0 + s * SE;
     constexpr int VPP = KC / VEC;
-    for (int e = threadIdx.x; e < (U::XPIX + U::SPIX) * VPP;
-         e += G::THREADS) {
+    constexpr int XM = U::XG * U::XPIX;
+    for (int e = threadIdx.x; e < (XM + U::SPIX) * VPP; e += G::THREADS) {
       const int m = e / VPP, gc = k * KC + (e % VPP) * VEC;
       const T* src = x;
       bool ok = false;
-      if (m < U::XPIX) {
-        const int h = h0 / 2 - 1 + m / U::XW, w = w0 / 2 - 1 + m % U::XW;
+      if (m < XM) {
+        const int mx = m / U::XG, g = m % U::XG;
+        const int h = h0 / 2 - 1 + mx / U::XW, w = w0 / 2 - 1 + mx % U::XW;
         ok = h >= 0 && h < Hl && w >= 0 && w < Wl && gc < C;
-        if (ok) src = xn + ((long long)h * Wl + w) * C + gc;
+        if (ok) src = xn + ((long long)h * Wl + w) * XC + g * C + gc;
       } else {
-        const int ms = m - U::XPIX;
+        const int ms = m - XM;
         const int h = h0 - 1 + ms / U::SW, w = w0 - 1 + ms % U::SW;
         ok = h >= 0 && h < Hh && w >= 0 && w < Wh && gc < C;
         if (ok) src = sn + ((long long)h * Wh + w) * C + gc;
@@ -143,41 +157,57 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
 
   auto phase1 = [&](int k, int s, T* As, auto&& mid) {
     const T* const Xs = S0 + s * SE;
-    const T* const Ss = Xs + U::XPIX * KC;
+    const T* const Ss = Xs + U::XG * U::XPIX * KC;
     const int gc = k * KC + c;
     const bool cok = gc < C;
-    // step 1: t over the window in 2 x 2 units. Unit (i, j) is window rows
-    // 2i, 2i + 1 and columns 2j, 2j + 1, from x_lo window rows i, i + 1 and
-    // columns j, j + 1: window row 2i is hi-res row h0 - 1 + 2i (odd), so
-    // .75 x[i] + .25 x[i + 1]; row 2i + 1 (even) .75 x[i + 1] + .25 x[i];
-    // the same along w.
-    constexpr int UW = U::TW / 2 + 1;
-    for (int u = q0; u < (U::TH / 2 + 1) * UW; u += PSTEP) {
-      const int i = u / UW, j = u % UW;
-      float lw[2], rw[2];  // along w: columns 2j and 2j + 1, x rows i, i + 1
-#pragma unroll
-      for (int di = 0; di < 2; ++di) {
-        const T* xr = Xs + ((i + di) * U::XW + j) * KC + c;
-        const float x0 = to_f(xr[0]), x1 = to_f(xr[KC]);
-        lw[di] = fmaf(0.75f, x0, 0.25f * x1);
-        rw[di] = fmaf(0.75f, x1, 0.25f * x0);
+    if constexpr (PHASE) {
+      // step 1: t over the window, each pixel from its phase group: window
+      // row r is hi-res row h0 - 1 + r, lo-res window row (r + 1) >> 1,
+      // phase (r + 1) & 1 (h0 is even); the same along w
+      for (int m = q0; m < U::SPIX; m += PSTEP) {
+        const int r = m / U::SW, q = m % U::SW;
+        const int h = h0 - 1 + r, w = w0 - 1 + q;
+        const int xm = (((r + 1) >> 1) * U::XW + ((q + 1) >> 1)) * 4 +
+                       ((r + 1) & 1) * 2 + ((q + 1) & 1);
+        Tw[m * KC + c] = h >= 0 && h < Hh && w >= 0 && w < Wh
+                             ? act(to_f(Xs[xm * KC + c]) + Nz[m]) +
+                                   to_f(Ss[m * KC + c])
+                             : 0.f;
       }
-      float up[2][2];  // [row 2i + dr][column 2j + dq]
-      up[0][0] = fmaf(0.75f, lw[0], 0.25f * lw[1]);
-      up[1][0] = fmaf(0.75f, lw[1], 0.25f * lw[0]);
-      up[0][1] = fmaf(0.75f, rw[0], 0.25f * rw[1]);
-      up[1][1] = fmaf(0.75f, rw[1], 0.25f * rw[0]);
+    } else {
+      // step 1: t over the window in 2 x 2 units. Unit (i, j) is window
+      // rows 2i, 2i + 1 and columns 2j, 2j + 1, from x_lo window rows i,
+      // i + 1 and columns j, j + 1: window row 2i is hi-res row h0 - 1 +
+      // 2i (odd), so .75 x[i] + .25 x[i + 1]; row 2i + 1 (even) .75
+      // x[i + 1] + .25 x[i]; the same along w.
+      constexpr int UW = U::TW / 2 + 1;
+      for (int u = q0; u < (U::TH / 2 + 1) * UW; u += PSTEP) {
+        const int i = u / UW, j = u % UW;
+        float lw[2], rw[2];  // along w: columns 2j, 2j + 1; x rows i, i + 1
 #pragma unroll
-      for (int dr = 0; dr < 2; ++dr)
-#pragma unroll
-        for (int dq = 0; dq < 2; ++dq) {
-          const int r = 2 * i + dr, q = 2 * j + dq, m = r * U::SW + q;
-          const int h = h0 - 1 + r, w = w0 - 1 + q;
-          Tw[m * KC + c] = h >= 0 && h < Hh && w >= 0 && w < Wh
-                               ? act(up[dr][dq] + Nz[m]) +
-                                     to_f(Ss[m * KC + c])
-                               : 0.f;
+        for (int di = 0; di < 2; ++di) {
+          const T* xr = Xs + ((i + di) * U::XW + j) * KC + c;
+          const float x0 = to_f(xr[0]), x1 = to_f(xr[KC]);
+          lw[di] = fmaf(0.75f, x0, 0.25f * x1);
+          rw[di] = fmaf(0.75f, x1, 0.25f * x0);
         }
+        float up[2][2];  // [row 2i + dr][column 2j + dq]
+        up[0][0] = fmaf(0.75f, lw[0], 0.25f * lw[1]);
+        up[1][0] = fmaf(0.75f, lw[1], 0.25f * lw[0]);
+        up[0][1] = fmaf(0.75f, rw[0], 0.25f * rw[1]);
+        up[1][1] = fmaf(0.75f, rw[1], 0.25f * rw[0]);
+#pragma unroll
+        for (int dr = 0; dr < 2; ++dr)
+#pragma unroll
+          for (int dq = 0; dq < 2; ++dq) {
+            const int r = 2 * i + dr, q = 2 * j + dq, m = r * U::SW + q;
+            const int h = h0 - 1 + r, w = w0 - 1 + q;
+            Tw[m * KC + c] = h >= 0 && h < Hh && w >= 0 && w < Wh
+                                 ? act(up[dr][dq] + Nz[m]) +
+                                       to_f(Ss[m * KC + c])
+                                 : 0.f;
+          }
+      }
     }
     mid();
     __syncthreads();
@@ -296,57 +326,67 @@ __global__ void rgb_sum_kernel(const float* __restrict__ part,
 }
 
 namespace {
-template <typename T, typename G>
+template <bool PHASE>
 struct Launch {
-  static int run(int blocks, int threads, int smem, const void* x,
-                 const void* skip, const void* noise_up, const void* wdw,
-                 const void* bdw, const void* wpw, const void* noise2,
-                 const void* wrgb, const void* brgb, void* feat, void* rgb,
-                 void* part, int N, int Hl, int Wl, int C, int O,
-                 cudaStream_t stream) {
-    using U = Up<T, G>;
-    const int OT = (O + G::TO - 1) / G::TO;
-    const long long tiles = (long long)N *
-                            ((2 * Hl + U::TH - 1) / U::TH) *
-                            ((2 * Wl + U::TW - 1) / U::TW);
-    if (threads != G::THREADS || smem != U::SMEM || blocks != tiles * OT ||
-        C % 8 != 0 || O % 8 != 0 || (feat == nullptr && rgb == nullptr) ||
-        (rgb != nullptr && OT > 1 && part == nullptr))
-      return (int)cudaErrorInvalidConfiguration;
-    cudaError_t err = allow_smem(upblock_kernel<T, G>, smem);
-    if (err != cudaSuccess) return (int)err;
-    upblock_kernel<T, G><<<blocks, threads, smem, stream>>>(
-        (const T*)x, (const T*)skip, (const T*)noise_up, (const T*)wdw,
-        (const T*)bdw, (const T*)wpw, (const T*)noise2, (const T*)wrgb,
-        (const T*)brgb, (T*)feat, (T*)rgb, (float*)part, N, Hl, Wl, C, O);
-    err = cudaGetLastError();
-    if (err != cudaSuccess || rgb == nullptr || OT == 1) return (int)err;
-    const long long n3 = (long long)N * (2 * Hl) * (2 * Wl) * CR;
-    const long long want = (n3 + 255) / 256;
-    const int sum_blocks = want < 2048 ? (int)want : 2048;
-    rgb_sum_kernel<T><<<sum_blocks, 256, 0, stream>>>(
-        (const float*)part, (const T*)brgb, (T*)rgb, n3, OT);
-    return (int)cudaGetLastError();
-  }
+  template <typename T, typename G>
+  struct L {
+    static int run(int blocks, int threads, int smem, const void* x,
+                   const void* skip, const void* noise_up, const void* wdw,
+                   const void* bdw, const void* wpw, const void* noise2,
+                   const void* wrgb, const void* brgb, void* feat, void* rgb,
+                   void* part, int N, int Hl, int Wl, int C, int O,
+                   cudaStream_t stream) {
+      using U = Up<T, G, PHASE>;
+      const int OT = (O + G::TO - 1) / G::TO;
+      const long long tiles = (long long)N *
+                              ((2 * Hl + U::TH - 1) / U::TH) *
+                              ((2 * Wl + U::TW - 1) / U::TW);
+      if (threads != G::THREADS || smem != U::SMEM || blocks != tiles * OT ||
+          C % 8 != 0 || O % 8 != 0 || (feat == nullptr && rgb == nullptr) ||
+          (rgb != nullptr && OT > 1 && part == nullptr))
+        return (int)cudaErrorInvalidConfiguration;
+      cudaError_t err = allow_smem(upblock_kernel<T, G, PHASE>, smem);
+      if (err != cudaSuccess) return (int)err;
+      upblock_kernel<T, G, PHASE><<<blocks, threads, smem, stream>>>(
+          (const T*)x, (const T*)skip, (const T*)noise_up, (const T*)wdw,
+          (const T*)bdw, (const T*)wpw, (const T*)noise2, (const T*)wrgb,
+          (const T*)brgb, (T*)feat, (T*)rgb, (float*)part, N, Hl, Wl, C, O);
+      err = cudaGetLastError();
+      if (err != cudaSuccess || rgb == nullptr || OT == 1) return (int)err;
+      const long long n3 = (long long)N * (2 * Hl) * (2 * Wl) * CR;
+      const long long want = (n3 + 255) / 256;
+      const int sum_blocks = want < 2048 ? (int)want : 2048;
+      rgb_sum_kernel<T><<<sum_blocks, 256, 0, stream>>>(
+          (const float*)part, (const T*)brgb, (T*)rgb, n3, OT);
+      return (int)cudaGetLastError();
+    }
+  };
 };
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; cfg, blocks, threads, smem: the launch
-// plan of migan_tpu_torch/ops/kernels/plan.py, checked here. noise2 may be
+// plan of migan_tpu_torch/ops/kernels/plan.py, checked here; mode: 0 x is
+// x_lo [N, Hl, Wl, C], 1 the phase input [N, Hl, Wl, 4C]. noise2 may be
 // null; feat or rgb may be null (not both); wrgb/brgb are read only when
 // rgb is not null; part, the f32 [O/TO, N*Hh*Wh, 3] scratch of the rgb
 // partial sums, is needed when rgb is not null and O > TO. C and O are
 // multiples of 8. Returns the CUDA error code of the launch (0 = success).
 extern "C" int migan_upblock(int dtype, int cfg, int blocks, int threads,
-                             int smem, const void* x, const void* skip,
+                             int smem, int mode, const void* x,
+                             const void* skip,
                              const void* noise_up, const void* wdw,
                              const void* bdw, const void* wpw,
                              const void* noise2, const void* wrgb,
                              const void* brgb, void* feat, void* rgb,
                              void* part, int N, int Hl, int Wl, int C, int O,
                              void* stream) {
-  return dispatch<Launch, UpCfg0, UpCfg1, UpCfg2>(
-      dtype, cfg, blocks, threads, smem, x, skip, noise_up, wdw, bdw, wpw,
-      noise2, wrgb, brgb, feat, rgb, part, N, Hl, Wl, C, O,
-      (cudaStream_t)stream);
+#define MIGAN_UP(P)                                                       \
+  dispatch<Launch<P>::L, UpCfg0, UpCfg1, UpCfg2>(                         \
+      dtype, cfg, blocks, threads, smem, x, skip, noise_up, wdw, bdw, wpw, \
+      noise2, wrgb, brgb, feat, rgb, part, N, Hl, Wl, C, O,               \
+      (cudaStream_t)stream)
+  if (mode == 0) return MIGAN_UP(false);
+  if (mode == 1) return MIGAN_UP(true);
+#undef MIGAN_UP
+  return (int)cudaErrorInvalidValue;
 }

@@ -107,3 +107,39 @@ def conv2d_resample(x: torch.Tensor, w: torch.Tensor,
     if down > 1:
         x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
     return x
+
+
+# Per-axis taps of the [1,3,3,1] up-2 FIR (gain 4) folded into a 1x1
+# conv: output row 2j (even phase) reads low-res rows j - 1, j; row 2j + 1
+# (odd) rows j, j + 1. Each with its (before, after) zero padding.
+_PHASE_TAPS = (((0.25, 0.75), (1, 0)), ((0.75, 0.25), (0, 1)))
+
+
+def pw_up2_phase(x: torch.Tensor, w_pw: torch.Tensor,
+                 packed: bool = False) -> torch.Tensor:
+    """Pointwise conv with the up-2 FIR folded in (port of
+    `migan_tpu/ops/conv.py::pw_up2_phase`): x [N, H, W, Ci] and w_pw
+    [Ci, Co] (or [1, 1, Ci, Co]) -> [N, H, W, 4 Co], whose channel group
+    (ph * 2 + pw) * Co + c holds up-sampling phase (ph, pw), the layout
+    `fused_up_block(phase_input=True)` reads. Equal to the 1x1 conv
+    followed by `upsample2d` with the [1,3,3,1] filter, as four
+    phase-weighted 2x2 convs (4x the 1x1 conv's products), or with
+    packed=True one 3x3 conv with 4 Co outputs (9x)."""
+    if w_pw.ndim == 4:
+        w_pw = w_pw[0, 0]
+    ci, co = w_pw.shape
+    w = w_pw.to(x.dtype)
+
+    def phase_kernel(fy, fx):
+        f = torch.tensor(fy, dtype=x.dtype, device=x.device)[:, None] * \
+            torch.tensor(fx, dtype=x.dtype, device=x.device)[None, :]
+        return f[:, :, None, None] * w                   # [kh, kw, Ci, Co]
+
+    if packed:
+        wide = {0: (0.25, 0.75, 0.0), 1: (0.0, 0.75, 0.25)}
+        k = torch.cat([phase_kernel(wide[ph], wide[pw])
+                       for ph in (0, 1) for pw in (0, 1)], dim=-1)
+        return conv2d(x, k, padding=1)
+    return torch.cat([conv2d(x, phase_kernel(fy, fx), padding=(py, px))
+                      for fy, py in _PHASE_TAPS for fx, px in _PHASE_TAPS],
+                     dim=-1)

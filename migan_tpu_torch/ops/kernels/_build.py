@@ -34,12 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (each returns the launch's CUDA error).
 SIGNATURES = {
-    "migan_sepconv": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _P],
+    "migan_sepconv": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "migan_downblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
-    "migan_upblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "migan_upblock": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

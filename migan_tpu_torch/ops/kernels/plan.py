@@ -16,7 +16,11 @@ Shared memory (`smem_bytes`) does not depend on C: two stages each of
 the A operand [tp, KC], the weights [KC, to] (rows padded against bank
 conflicts) and the kernel's stencil input (`x` below), plus downblock's
 f32 y window and w-filtered rows, or upblock's f32 t window and its
-noise_up.
+noise_up. The options change the stencil input (`mode`): sepconv's skip
+stages the skip window beside x; its prologue instead keeps the whole
+[3 (tp + 2), Cin] input window in f32 for the block's life, so it grows
+with Cin and a wide input can outgrow a block; upblock's phase input
+stages four phase groups of the x_lo window.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ NUM_SMS = 132                # H100 SXM
 MAX_SMEM_BYTES = 232_448     # dynamic shared memory a block may have
 KC = 32                      # input channels per K chunk
 CHANNEL_MULTIPLE = 8         # C and O: copied as 16-byte vectors
+PROLOGUE_NARROW_CIN = 4      # the prologue's input may also be 4 wide
+
+# `mode` of sepconv (the C entry point's argument): no option, skip, the
+# pointwise prologue (with or without skip); of upblock: x_lo, or the
+# four up-sampling phases of `ops/conv.py::pw_up2_phase` as x_lo.
+SEP_PLAIN, SEP_SKIP, SEP_PROLOGUE = 0, 1, 2
+UP_PLAIN, UP_PHASE = 0, 1
 
 
 @dataclass(frozen=True)
@@ -64,20 +75,27 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def smem_bytes(kernel: str, cfg: TileConfig, dtype: torch.dtype) -> int:
+def smem_bytes(kernel: str, cfg: TileConfig, dtype: torch.dtype,
+               mode: int = 0, cin: int = 0) -> int:
     """Dynamic shared memory of one block (see the module's docstring).
     x is, per stage, sepconv's three flat segments of tp + 2 pixels (rows
     h - 1, h, h + 1 of its taps), downblock's (2 th + 4) x (2 tw + 4)
     hi-res window, or upblock's (th/2 + 2) x (tw/2 + 2) x_lo window and
-    (th + 2) x (tw + 2) skip window."""
+    (th + 2) x (tw + 2) skip window. mode: the kernel's option (SEP_*,
+    UP_*); cin: the prologue's input channels."""
     es = 4 if dtype == torch.float32 else 2
     a_row = KC + (4 if es == 4 else 8)
     ring = 2 * es * (cfg.tp * a_row + KC * (cfg.to + 8))
     if kernel == "sepconv":
-        return ring + 2 * es * 3 * (cfg.tp + 2) * KC
+        window = 3 * (cfg.tp + 2)
+        if mode == SEP_PROLOGUE:
+            return ring + 4 * window * cin
+        return ring + 2 * es * window * KC * (2 if mode == SEP_SKIP else 1)
     tw = cfg.tp // cfg.th
     if kernel == "upblock":
         x_window = (cfg.th // 2 + 2) * (tw // 2 + 2)
+        if mode == UP_PHASE:
+            x_window *= 4
         t_window = (cfg.th + 2) * (tw + 2)
         return (ring + 2 * es * (x_window + t_window) * KC
                 + 4 * KC * t_window + 4 * t_window)
@@ -98,37 +116,59 @@ def pixel_tiles(kernel: str, n: int, h: int, w: int, cfg: TileConfig) -> int:
 
 
 def launch_plan(kernel: str, n: int, h: int, w: int, o: int,
-                dtype: torch.dtype) -> Plan:
+                dtype: torch.dtype, mode: int = 0, cin: int = 0) -> Plan:
     """The largest tile whose output width divides O and that still gives
-    a full wave of NUM_SMS blocks; the smallest tile otherwise.
+    a full wave of NUM_SMS blocks; the smallest tile otherwise. A tile
+    whose shared memory does not fit a block is passed over; when none
+    fits (sepconv's prologue at a wide input), it raises.
 
     kernel: "sepconv", "downblock" or "upblock"; n, h, w: the input's
-    batch and spatial size (x_lo's for upblock); o: output channels. The input's channel count does not
-    enter: it is streamed in chunks.
+    batch and spatial size (x_lo's for upblock); o: output channels;
+    mode, cin: as `smem_bytes`. The input's channel count does not
+    enter otherwise: it is streamed in chunks.
     """
     if kernel not in CONFIGS:
         raise ValueError(f"launch_plan: unknown kernel {kernel!r}")
     configs = CONFIGS[kernel]
-    for i, cfg in enumerate(configs):
+    fits = [(i, cfg) for i, cfg in enumerate(configs)
+            if smem_bytes(kernel, cfg, dtype, mode, cin) <= MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(
+            f"launch_plan: {kernel} mode {mode} with {cin} input channels "
+            f"needs {smem_bytes(kernel, configs[-1], dtype, mode, cin)} "
+            f"bytes of shared memory at its smallest tile, more than a "
+            f"block's {MAX_SMEM_BYTES}")
+    for i, cfg in fits:
         out_tiles = _cdiv(o, cfg.to)
         blocks = pixel_tiles(kernel, n, h, w, cfg) * out_tiles
-        if i == len(configs) - 1 or (o % cfg.to == 0 and blocks >= NUM_SMS):
+        if i == fits[-1][0] or (o % cfg.to == 0 and blocks >= NUM_SMS):
             return Plan(i, blocks, cfg.threads,
-                        smem_bytes(kernel, cfg, dtype), out_tiles)
+                        smem_bytes(kernel, cfg, dtype, mode, cin),
+                        out_tiles)
     raise AssertionError("unreachable")
 
 
-def check_tc_args(name: str, x: torch.Tensor, w_pw: torch.Tensor) -> None:
-    """Raise on what the tensor-core kernels do not take: C or O not a
-    multiple of 8, x or w_pw not 16-byte aligned (both are copied as
-    16-byte vectors), or more than 2^31 - 1 pixels (32-bit pixel
-    indices)."""
+def check_tc_args(name: str, x: torch.Tensor, w_pw: torch.Tensor,
+                  prologue: bool = False) -> None:
+    """Raise on what the tensor-core kernels do not take: x's channels,
+    or w_pw's C or O, not a multiple of 8 (the input of sepconv's
+    prologue may also have 4 channels, which it reads without 16-byte
+    copies), x or w_pw not 16-byte aligned (both are copied as 16-byte
+    vectors), or more than 2^31 - 1 pixels (32-bit pixel indices)."""
     n, h, w, c = x.shape
-    o = w_pw.shape[-1]
-    if c % CHANNEL_MULTIPLE or o % CHANNEL_MULTIPLE:
-        raise ValueError(f"{name}: C = {c}, O = {o} channels; the kernel "
-                         f"takes multiples of {CHANNEL_MULTIPLE}")
+    ci, o = w_pw.shape[-2:]
+    narrow = prologue and c == PROLOGUE_NARROW_CIN
+    if ((c % CHANNEL_MULTIPLE and not narrow) or ci % CHANNEL_MULTIPLE
+            or o % CHANNEL_MULTIPLE):
+        raise ValueError(
+            f"{name}: x has {c} channels, w_pw is {ci} -> {o}; the kernel "
+            f"takes multiples of {CHANNEL_MULTIPLE}"
+            + (f" (or an input of {PROLOGUE_NARROW_CIN} channels to the "
+               f"prologue)" if prologue else
+               f"; only the prologue's input may have "
+               f"{PROLOGUE_NARROW_CIN}"))
     if x.data_ptr() % 16 or w_pw.data_ptr() % 16:
-        raise ValueError(f"{name}: x or w_pw is not 16-byte aligned")
+        raise ValueError(f"{name}: an input of shape {tuple(x.shape)} or "
+                         f"w_pw is not 16-byte aligned")
     if n * h * w >= 2 ** 31:
         raise ValueError(f"{name}: {n * h * w} pixels, more than 2^31 - 1")

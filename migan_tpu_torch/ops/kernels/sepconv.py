@@ -1,10 +1,15 @@
-"""Fused SeparableConv2d body: ``[act](pw1x1(act(dw3x3(x) + b_dw)) [+noise])``.
+"""Fused SeparableConv2d body:
+``[act](pw1x1(act(dw3x3(z) + b_dw)) [+noise])`` with
+``z = x (+ skip)``, or ``z = act((x (+ skip)) . w_pre + b_pre)`` with the
+pointwise prologue.
 
 Port of `migan_tpu/ops/pallas/sepconv.py::fused_block` and
 `migan_tpu/ops/pallas/packedblock.py::fused_block_packed`: one CUDA kernel
 (`csrc/sepconv.cu`, pointwise product on tensor cores) on contiguous NHWC
 tensors, with `final_act=False` for a synthesis conv1's low-res half, whose
-activation follows the up-sample. Its launch geometry comes from
+activation follows the up-sample, and the JAX function's `skip` and
+`w_pre`/`b_pre` options (the prologue at any input width, which covers
+the TPU's 128-lane `pre_g` layout of it). Its launch geometry comes from
 `plan.launch_plan`.
 
 The wrapper calls the `torch.library` custom op `migan::fused_block`, so
@@ -28,10 +33,39 @@ ACT = lrelu_agc(alpha=0.2, gain="sqrt_2", clamp=256)
 COUNTER = _build.LaunchCounter("sepconv")
 
 
+def check_options(name: str, x: torch.Tensor, w_dw: torch.Tensor,
+                  skip: Optional[torch.Tensor], w_pre: Optional[torch.Tensor],
+                  b_pre: Optional[torch.Tensor]) -> None:
+    """Raise on an unpaired w_pre / b_pre, or a skip or prologue whose
+    shape does not fit x [N,H,W,Cin] and the dw stage's C channels."""
+    if (w_pre is None) != (b_pre is None):
+        raise ValueError(f"{name}: pass both w_pre and b_pre")
+    if skip is not None and skip.shape != x.shape:
+        raise ValueError(f"{name}: shapes skip {tuple(skip.shape)} and x "
+                         f"{tuple(x.shape)} differ")
+    c = w_dw.shape[-1]
+    if w_pre is not None and (w_pre.shape != (x.shape[-1], c)
+                              or b_pre.shape != (c,)):
+        raise ValueError(f"{name}: shapes w_pre {tuple(w_pre.shape)} b_pre "
+                         f"{tuple(b_pre.shape)}, expected "
+                         f"({x.shape[-1]}, {c}) and ({c},)")
+
+
 def sepconv_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                   w_pw: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                  final_act: bool = True) -> torch.Tensor:
-    """x [N,H,W,C], w_dw [3,3,C], b_dw [C], w_pw [C,O], noise [H,W]."""
+                  final_act: bool = True,
+                  skip: Optional[torch.Tensor] = None,
+                  w_pre: Optional[torch.Tensor] = None,
+                  b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [N,H,W,Cin], w_dw [3,3,C], b_dw [C], w_pw [C,O], noise [H,W];
+    skip [N,H,W,Cin] added to x first; w_pre [Cin,C] and b_pre [C] the
+    prologue act(z . w_pre + b_pre) (Cin = C without it), as
+    `migan_tpu/ops/pallas/sepconv.py::_xla_block`."""
+    check_options("sepconv_plain", x, w_dw, skip, w_pre, b_pre)
+    if skip is not None:
+        x = x + skip
+    if w_pre is not None:
+        x = ACT(conv2d(x, w_pre[None, None]) + b_pre)
     c = x.shape[-1]
     y = conv2d(x, w_dw[:, :, None, :], padding=1, groups=c) + b_dw
     y = conv2d(ACT(y), w_pw[None, None])
@@ -42,12 +76,16 @@ def sepconv_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
 
 def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
             w_pw: torch.Tensor, noise: Optional[torch.Tensor],
-            final_act: bool) -> torch.Tensor:
+            final_act: bool, skip: Optional[torch.Tensor] = None,
+            w_pre: Optional[torch.Tensor] = None,
+            b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The CUDA kernel's launch (ctypes), one count per launch."""
-    n, h, w, c = x.shape
+    n, h, w, cin = x.shape
+    c = w_dw.shape[-1]
     o = w_pw.shape[-1]
+    check_options("fused_block", x, w_dw, skip, w_pre, b_pre)
     if (w_dw.shape != (3, 3, c) or b_dw.shape != (c,)
-            or w_pw.shape != (c, o)
+            or w_pw.shape != (c, o) or (w_pre is None and cin != c)
             or (noise is not None and noise.shape != (h, w))):
         raise ValueError(
             f"fused_block: shapes x {tuple(x.shape)} w_dw "
@@ -55,16 +93,24 @@ def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
             f"{tuple(w_pw.shape)} noise "
             f"{None if noise is None else tuple(noise.shape)}")
     _build.check_cuda_args("fused_block", x.dtype, x.device, x=x,
-                           w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise=noise)
-    plan.check_tc_args("fused_block", x, w_pw)
-    p = plan.launch_plan("sepconv", n, h, w, o, x.dtype)
+                           w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise=noise,
+                           skip=skip, w_pre=w_pre, b_pre=b_pre)
+    plan.check_tc_args("fused_block", x, w_pw, prologue=w_pre is not None)
+    if skip is not None:
+        plan.check_tc_args("fused_block", skip, w_pw,
+                           prologue=w_pre is not None)
+    mode = (plan.SEP_PROLOGUE if w_pre is not None else
+            plan.SEP_SKIP if skip is not None else plan.SEP_PLAIN)
+    p = plan.launch_plan("sepconv", n, h, w, o, x.dtype, mode=mode,
+                         cin=cin)
     lib = _build.load_library()
     out = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
     err = lib.migan_sepconv(
         _build.DTYPE_CODES[x.dtype], p.config, p.blocks, p.threads,
-        p.smem_bytes, x.data_ptr(), w_dw.data_ptr(),
+        p.smem_bytes, mode, x.data_ptr(), _build.ptr(skip),
+        _build.ptr(w_pre), _build.ptr(b_pre), w_dw.data_ptr(),
         b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise), out.data_ptr(),
-        n, h, w, c, o, int(final_act), _build.stream_handle(x.device))
+        n, h, w, cin, c, o, int(final_act), _build.stream_handle(x.device))
     _build.raise_on_error("fused_block", err)
     COUNTER.add()
     return out
@@ -74,28 +120,45 @@ def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                          device_types="cuda")
 def fused_block_op(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                    w_pw: torch.Tensor, noise: Optional[torch.Tensor],
-                   final_act: bool) -> torch.Tensor:
-    return _launch(x, w_dw, b_dw, w_pw, noise, final_act)
+                   final_act: bool, skip: Optional[torch.Tensor] = None,
+                   w_pre: Optional[torch.Tensor] = None,
+                   b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _launch(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre,
+                   b_pre)
 
 
 fused_block_op.register_kernel("cpu")(sepconv_plain)
 
 
 @fused_block_op.register_fake
-def _(x, w_dw, b_dw, w_pw, noise, final_act):
+def _(x, w_dw, b_dw, w_pw, noise, final_act, skip=None, w_pre=None,
+      b_pre=None):
     return x.new_empty((*x.shape[:3], w_pw.shape[-1]))
 
 
 def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                 w_pw: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                final_act: bool = True) -> torch.Tensor:
-    """Fused dw3x3 + b -> act -> pw1x1 (+noise) (-> act).
+                final_act: bool = True, skip: Optional[torch.Tensor] = None,
+                w_pre: Optional[torch.Tensor] = None,
+                b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused (+skip) -> (act(pw_pre + b_pre)) -> dw3x3 + b -> act -> pw1x1
+    (+noise) (-> act).
 
-    x: [N, H, W, C] contiguous; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
-    noise: optional [H, W] per-pixel scalar (already scaled by its
-    strength), broadcast over batch and channels. All of one dtype; C and
-    O multiples of 8 on CUDA. Returns [N, H, W, O]. CPU tensors take the
-    plain version; any device but CPU and CUDA raises.
+    x: [N, H, W, Cin] contiguous; skip: optional [N, H, W, Cin], added to
+    x first; w_pre: optional [Cin, C] and b_pre [C], the pointwise
+    prologue (both or neither; without it Cin = C); w_dw: [3, 3, C];
+    b_dw: [C]; w_pw: [C, O]; noise: optional [H, W] per-pixel scalar
+    (already scaled by its strength), broadcast over batch and channels.
+    All of one dtype; C and O multiples of 8 on CUDA, and Cin too, or 4
+    with the prologue. Returns [N, H, W, O]. CPU tensors take the plain
+    version; any device but CPU and CUDA raises.
+
+    The prologue runs on the CUDA cores. It pays off at a small Cin: at
+    Cin = 4 one call took 0.41-0.60x fromrgb (1x1 conv + act) then this
+    kernel; at Cin = 128 it took 2.2x its plain version (NVIDIA H100
+    80GB HBM3, 700 W; `chip_smoke.py` phase 11). Fuse it only where Cin
+    is small.
     """
     _build.check_device("fused_block", x)
-    return fused_block_op(x, w_dw, b_dw, w_pw, noise, final_act)
+    return fused_block_op(x, w_dw, b_dw, w_pw, noise, final_act, skip,
+                          w_pre, b_pre)

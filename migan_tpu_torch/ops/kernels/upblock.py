@@ -6,7 +6,11 @@ optional torgb epilogue ``rgb = y . w_rgb + b_rgb``.
 Port of `migan_tpu/ops/pallas/upblock.py::fused_up_block` as one CUDA
 kernel (`csrc/upblock.cu`: t once per hi-res pixel of a tile, pointwise
 product on tensor cores, torgb summed in a fixed order) on contiguous NHWC
-tensors. Its launch geometry comes from `plan.launch_plan`.
+tensors. Its launch geometry comes from `plan.launch_plan`. With
+`phase_input=True` x_lo is `[N, Hl, Wl, 4C]`, the four up-sampling
+phases that `ops/conv.py::pw_up2_phase` computes with the FIR folded
+into the preceding pointwise conv, and the up-sample is a pure
+depth-to-space interleave (`_xla_up_block_phase` in JAX).
 
 The wrapper calls the `torch.library` custom op `migan::fused_up_block`
 (the ctypes launch on CUDA, `upblock_plain`'s arithmetic on the CPU, a
@@ -38,9 +42,30 @@ def _outputs(feat, rgb, emit_features):
     return (feat, rgb) if emit_features else rgb
 
 
-def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb):
+def check_phase(name: str, x_lo: torch.Tensor, phase_input: bool) -> None:
+    """Raise when a phase input's channels are not four groups."""
+    if phase_input and x_lo.shape[-1] % 4:
+        raise ValueError(f"{name}: phase_input x_lo has {x_lo.shape[-1]} "
+                         f"channels, not a multiple of 4")
+
+
+def _hires(x_lo, phase_input):
+    """x_lo at the hi-res grid: the [1,3,3,1] up-2 FIR, or with
+    phase_input the four phase groups interleaved (depth-to-space)."""
+    if not phase_input:
+        return upsample2d(x_lo, setup_filter(FIR_TAPS, device=x_lo.device),
+                          up=2)
+    n, hl, wl, xc = x_lo.shape
+    c = xc // 4
+    return (x_lo.reshape(n, hl, wl, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(n, 2 * hl, 2 * wl, c))
+
+
+def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+           phase_input=False):
     """(features, rgb or None) in plain PyTorch."""
-    t = upsample2d(x_lo, setup_filter(FIR_TAPS, device=x_lo.device), up=2)
+    check_phase("upblock_plain", x_lo, phase_input)
+    t = _hires(x_lo, phase_input)
     t = ACT(t + noise_up[None, :, :, None]) + skip
     c = t.shape[-1]
     y = ACT(conv2d(t, w_dw[:, :, None, :], padding=1, groups=c) + b_dw)
@@ -53,17 +78,21 @@ def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb):
 
 
 def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
-                  w_rgb=None, b_rgb=None, emit_features=True):
+                  w_rgb=None, b_rgb=None, emit_features=True,
+                  phase_input=False):
     """The same outputs as :func:`fused_up_block`, in plain PyTorch."""
     return _outputs(*_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                            w_rgb, b_rgb), emit_features)
+                            w_rgb, b_rgb, phase_input), emit_features)
 
 
 def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-            emit_features):
+            emit_features, phase_input=False):
     """The CUDA kernel's launch (ctypes), one count per launch. Returns
     (features or None, rgb or None)."""
+    check_phase("fused_up_block", x_lo, phase_input)
     n, hl, wl, c = x_lo.shape
+    if phase_input:
+        c //= 4
     o = w_pw.shape[-1]
     hw = (2 * hl, 2 * wl)
     if (skip.shape != (n, *hw, c) or noise_up.shape != hw
@@ -83,7 +112,8 @@ def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
                            w_rgb=w_rgb, b_rgb=b_rgb)
     plan.check_tc_args("fused_up_block", x_lo, w_pw)
     plan.check_tc_args("fused_up_block", skip, w_pw)
-    p = plan.launch_plan("upblock", n, hl, wl, o, x_lo.dtype)
+    mode = plan.UP_PHASE if phase_input else plan.UP_PLAIN
+    p = plan.launch_plan("upblock", n, hl, wl, o, x_lo.dtype, mode=mode)
     lib = _build.load_library()
     dev = x_lo.device
     feat = (torch.empty((n, *hw, o), dtype=x_lo.dtype, device=dev)
@@ -97,7 +127,8 @@ def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
                                dtype=torch.float32, device=dev)
     err = lib.migan_upblock(
         _build.DTYPE_CODES[x_lo.dtype], p.config, p.blocks, p.threads,
-        p.smem_bytes, x_lo.data_ptr(), skip.data_ptr(), noise_up.data_ptr(),
+        p.smem_bytes, mode, x_lo.data_ptr(), skip.data_ptr(),
+        noise_up.data_ptr(),
         w_dw.data_ptr(), b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise2),
         _build.ptr(w_rgb), _build.ptr(b_rgb), _build.ptr(feat),
         _build.ptr(rgb), _build.ptr(part), n, hl, wl, c, o,
@@ -120,23 +151,25 @@ def fused_up_block_op(x_lo: torch.Tensor, skip: torch.Tensor,
                       b_dw: torch.Tensor, w_pw: torch.Tensor,
                       noise2: Optional[torch.Tensor],
                       w_rgb: Optional[torch.Tensor],
-                      b_rgb: Optional[torch.Tensor], emit_features: bool
+                      b_rgb: Optional[torch.Tensor], emit_features: bool,
+                      phase_input: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _pair(x_lo, *_launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
-                                noise2, w_rgb, b_rgb, emit_features))
+                                noise2, w_rgb, b_rgb, emit_features,
+                                phase_input))
 
 
 @fused_up_block_op.register_kernel("cpu")
 def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-      emit_features):
+      emit_features, phase_input=False):
     feat, rgb = _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                       w_rgb, b_rgb)
+                       w_rgb, b_rgb, phase_input)
     return _pair(x_lo, feat if emit_features else None, rgb)
 
 
 @fused_up_block_op.register_fake
 def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-      emit_features):
+      emit_features, phase_input=False):
     n, hl, wl, _ = x_lo.shape
     hw = (2 * hl, 2 * wl)
     return _pair(x_lo,
@@ -151,11 +184,14 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
                    noise2: Optional[torch.Tensor] = None,
                    w_rgb: Optional[torch.Tensor] = None,
                    b_rgb: Optional[torch.Tensor] = None,
-                   emit_features: bool = True):
+                   emit_features: bool = True, phase_input: bool = False):
     """Fused up2 + noise + act + skip + dw3x3/pw1x1 (+noise2) + act
     (+ torgb).
 
-    x_lo: [N, Hl, Wl, C]; skip: [N, 2Hl, 2Wl, C]; noise_up, noise2:
+    x_lo: [N, Hl, Wl, C], or with phase_input [N, Hl, Wl, 4C], whose
+    channel group (ph * 2 + pw) * C + c is hi-res pixel (2i + ph,
+    2j + pw) (`ops/conv.py::pw_up2_phase`); skip: [N, 2Hl, 2Wl, C];
+    noise_up, noise2:
     [2Hl, 2Wl] pre-scaled noise; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
     w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue. All contiguous and
     of one dtype; C and O multiples of 8 on CUDA.
@@ -171,5 +207,6 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
         raise ValueError("fused_up_block: no output requested")
     _build.check_device("fused_up_block", x_lo)
     feat, rgb = fused_up_block_op(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
-                                  noise2, w_rgb, b_rgb, emit_features)
+                                  noise2, w_rgb, b_rgb, emit_features,
+                                  phase_input)
     return _outputs(feat, None if w_rgb is None else rgb, emit_features)

@@ -18,6 +18,12 @@ Tolerances: float32 rtol/atol 1e-4, the same float32 sums in another order
 clamp case, whose partial sums reach the hundreds). bfloat16 atol 0.05 +
 rtol 0.02: the kernels keep f32 where the plain path rounds after each of
 its ~6 ops (bf16 keeps 8 bits).
+
+The kernels' options (fused_block's skip and pointwise prologue,
+fused_up_block's phase input) at the JAX tests' shapes, migan-512's and
+ragged ones, with the same tolerances; in bfloat16 against the plain
+version in float32 on the same inputs (`_held_option`), and the border
+rows of the prologue's zero padding.
 """
 
 import os
@@ -34,6 +40,7 @@ from migan_tpu_torch.ops.kernels import (
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
+BF16_FACTOR = 2.0
 # the kernel launches of one migan-512 forward, deduplicated
 MAIN_SHAPES = sorted(set(kernel_shapes(GeneratorConfig(resolution=512))),
                      key=str)
@@ -264,6 +271,201 @@ def test_wrappers_refuse_widths_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_down_block(*args)
     assert (sepconv.COUNTER.count, downblock.COUNTER.count) == before
+
+
+# ---------------------------------------------------------------------------
+# The kernel options: fused_block's skip and pointwise prologue,
+# fused_up_block's phase input
+# ---------------------------------------------------------------------------
+
+def _options(rng, kind, x, c, b_pre_scale=0.1):
+    """fused_block keyword options of `kind` for x [N,H,W,Cin] and a dw
+    stage of C channels (CPU tensors)."""
+    cin = x.shape[-1]
+    kw = {}
+    if kind in ("skip", "both"):
+        kw["skip"] = _r(rng, *x.shape)
+    if kind in ("prologue", "both"):
+        kw["w_pre"] = _r(rng, cin, c, scale=cin ** -0.5)
+        kw["b_pre"] = _r(rng, c, scale=b_pre_scale)
+    return kw
+
+
+def _on_kw(dev, kw, dtype):
+    return {k: v.to(dev, dtype) for k, v in kw.items()}
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _held_option(dev, kernel, args, dtype, **kw):
+    """`_held` for the options. In bfloat16 the reference is the plain
+    version in float32 on the same bfloat16 inputs, at the same bf16
+    tolerance: the options' plain compositions round two or three times
+    more than the kernels (x + skip; the prologue's conv, bias and act;
+    the phase input's noise and act), so against the plain bfloat16
+    version a few elements in millions fall outside it, as both drift
+    from float32. The kernel's relative L2 distance from that reference
+    must also be at most BF16_FACTOR times the plain bfloat16 version's:
+    it may not lose more to rounding than the plain path does."""
+    if dtype == torch.float32:
+        return _held(dev, kernel, args, dtype, **kw)
+    mod, fused, plain = {
+        "sepconv": (sepconv, fused_block, sepconv.sepconv_plain),
+        "upblock": (upblock, fused_up_block, upblock.upblock_plain)}[kernel]
+    f32 = lambda a: a.float() if isinstance(a, torch.Tensor) else a
+    before = mod.COUNTER.count
+    got = fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert mod.COUNTER.count == before + 1
+    want = plain(*map(f32, args), **{k: f32(v) for k, v in kw.items()})
+    plain16 = plain(*args, **kw)
+    for g, w, p16 in zip(_outs(got), _outs(want), _outs(plain16)):
+        _close(g, w, dtype)
+        rel = [((t.float() - w).norm() / w.norm()).item() for t in (g, p16)]
+        assert rel[0] <= BF16_FACTOR * rel[1], rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,c,o,kind", [
+    (2, 32, 32, 128, 128, 64, "skip"),       # the JAX tests' shape
+    (2, 32, 32, 128, 128, 64, "prologue"),
+    (2, 32, 32, 128, 128, 64, "both"),
+    (2, 32, 32, 8, 128, 128, "prologue"),    # the JAX wide-prologue shape
+    (1, 512, 512, 4, 64, 64, "prologue"),    # fromrgb into the top conv1
+    (1, 512, 512, 64, 64, 64, "skip"),
+    (3, 18, 10, 4, 40, 24, "both"),          # ragged tiles, K and O
+    (2, 6, 14, 16, 40, 24, "prologue"),      # one ragged K chunk
+])
+def test_sepconv_options_match_plain(dev, n, h, w, cin, c, o, kind, dtype):
+    """skip, the prologue and both, with noise, with and without the
+    final act, at the JAX tests' shapes, migan-512's top level and ragged
+    sizes."""
+    rng = np.random.RandomState(cin + c + o + h)
+    x = _r(rng, n, h, w, cin)
+    kw = _on_kw(dev, _options(rng, kind, x, c), dtype)
+    args = _on(dev, x, *_sep(rng, c, o), _r(rng, h, w, scale=0.1),
+               dtype=dtype)
+    for fa in (True, False):
+        _held_option(dev, "sepconv", args, dtype, final_act=fa, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin", [4, 8])
+def test_sepconv_prologue_zero_pads_its_output(dev, cin, dtype):
+    """The dw's zero padding applies to the prologue's output: with a
+    large b_pre, act(b_pre) is far from 0, so a kernel that ran the
+    prologue on zero-padded x would differ at every border row and
+    column. The border rows and columns are held apart from the rest."""
+    rng = np.random.RandomState(31 + cin)
+    n, h, w, c, o = 2, 40, 56, 64, 64
+    x = _r(rng, n, h, w, cin)
+    kw = _on_kw(dev, _options(rng, "prologue", x, c, b_pre_scale=0.0),
+                dtype)
+    kw["b_pre"] += 3.0
+    args = _on(dev, x, *_sep(rng, c, o), dtype=dtype)
+    got = fused_block(*args, **kw)
+    # the plain version in float32 on the same inputs (`_held_option`)
+    args = [a.float() for a in args]
+    kw = {k: v.float() for k, v in kw.items()}
+    want = sepconv.sepconv_plain(*args, **kw)
+    # act(b_pre) on the padding instead of 0: what the border would be
+    z = sepconv.ACT(torch.nn.functional.pad(args[0], (0, 0, 1, 1, 1, 1))
+                    @ kw["w_pre"] + kw["b_pre"])
+    y = sepconv.conv2d(z, args[1][:, :, None, :], groups=c) + args[2]
+    wrong = sepconv.ACT(sepconv.conv2d(sepconv.ACT(y), args[3][None, None]))
+    for rows in (np.s_[:, [0, -1]], np.s_[:, :, [0, -1]]):
+        assert (wrong[rows] - want[rows]).abs().max() > 0.5
+        _close(got[rows], want[rows], dtype)
+    _close(got, want, dtype)
+
+
+def _phase_args(rng, n, hl, wl, c, o):
+    """upblock's inputs with a phase input x4 [n, hl, wl, 4c]."""
+    _, *rest = _up(rng, n, hl, wl, c, o)
+    return (_r(rng, n, hl, wl, 4 * c), *rest)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,hl,wl,c,o", [
+    (2, 8, 16, 128, 128),      # the JAX test's shape
+    (1, 256, 256, 64, 64),     # migan-512's top synthesis level
+    (1, 128, 128, 128, 128),   # and the level below
+    (3, 35, 29, 64, 128),      # ragged 8 x 8 tiles
+    (3, 27, 21, 96, 128),      # two output tiles, ragged K
+    (2, 7, 5, 40, 200),        # 4 x 4 tiles, O not a multiple of 64
+])
+def test_upblock_phase_input_matches_plain(dev, n, hl, wl, c, o, dtype):
+    """fused_up_block(phase_input=True) against upblock_plain with both
+    outputs and with rgb only."""
+    rng = np.random.RandomState(hl + c + o)
+    args = _on(dev, *_phase_args(rng, n, hl, wl, c, o), dtype=dtype)
+    for emit in (True, False):
+        _held_option(dev, "upblock", args, dtype, emit_features=emit,
+                     phase_input=True)
+    _held_option(dev, "upblock", args[:7], dtype, phase_input=True)
+
+
+def test_upblock_phase_input_at_1024(dev):
+    """The phase input's shared memory does not grow with C: C = 1024
+    (x4 of 4096 channels) runs and matches the plain version."""
+    rng = np.random.RandomState(17)
+    args = _on(dev, *_phase_args(rng, 1, 4, 6, 1024, 64))
+    p = plan.launch_plan("upblock", 1, 4, 6, 64, torch.float32,
+                         mode=plan.UP_PHASE)
+    assert p.smem_bytes <= plan.MAX_SMEM_BYTES
+    _held(dev, "upblock", args, torch.float32, phase_input=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_phase_chain_equals_the_stencil_chain(dev, dtype):
+    """[pw_up2_phase -> fused_up_block(phase_input)] equals [1x1 conv ->
+    fused_up_block] on the card, at migan-512's top level widths."""
+    from migan_tpu_torch.ops.conv import conv2d, pw_up2_phase
+
+    rng = np.random.RandomState(23)
+    n, hl, wl, ci, c, o = 2, 32, 48, 128, 64, 64
+    y, w1 = _on(dev, _r(rng, n, hl, wl, ci), _r(rng, ci, c, scale=0.1),
+                dtype=dtype)
+    rest = _on(dev, *_up(rng, n, hl, wl, c, o)[1:7], dtype=dtype)
+    want = fused_up_block(conv2d(y, w1[None, None]), *rest)
+    for packed in (False, True):
+        got = fused_up_block(pw_up2_phase(y, w1, packed=packed), *rest,
+                             phase_input=True)
+        _close(got, want, dtype)
+
+
+def test_options_refuse_what_the_kernels_do_not_take(dev):
+    """A 12-channel prologue input, a 4-channel input without the
+    prologue, a prologue window larger than a block's shared memory, a
+    skip 4 bytes off 16-byte alignment, a phase input of 4C + 2
+    channels: each raises before a launch."""
+    rng = np.random.RandomState(29)
+    before = (sepconv.COUNTER.count, upblock.COUNTER.count)
+    c = 64
+    w = _on(dev, *_sep(rng, c, c))
+    for cin, prologue, match in ((12, True, "multiples of 8"),
+                                 (4, False, "shapes"),
+                                 (2048, True, "shared memory")):
+        x = _on(dev, _r(rng, 1, 8, 8, cin))[0]
+        kw = _on_kw(dev, _options(rng, "prologue", x, c), torch.float32) \
+            if prologue else {}
+        with pytest.raises(ValueError, match=match):
+            fused_block(x, *w, **kw)
+    x = _on(dev, _r(rng, 1, 8, 8, c))[0]
+    skip = torch.zeros(x.numel() + 1, device=dev)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_block(x, *w, skip=skip)
+    args = _on(dev, *_phase_args(rng, 1, 4, 4, 8, 8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_up_block(args[0][..., :-2].contiguous(), *args[1:],
+                       phase_input=True)
+    assert (sepconv.COUNTER.count, upblock.COUNTER.count) == before
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,10 @@ chain exported), the create_pipeline CLI (a bucket and the dynamic
 program), one step of the training CLI and one fused call of two steps,
 a native mask, an ffhqzip
 item, an in-loop metric evaluation with a random detector, and a 1-rank
-gloo group's gather and gradient all-reduce, and finds neither in
-sys.modules. `chip_smoke.py` names neither
-in any of its imports, and imports the demo, serve, evaluate, export and
-create_pipeline entry points."""
+gloo group's gather and gradient all-reduce, and the FIR-fold CLI on the
+CPU, and finds neither in sys.modules. `chip_smoke.py` names neither
+in any of its imports, and imports the demo, serve, evaluate, export,
+create_pipeline and fir_fold entry points."""
 
 import ast
 import os
@@ -196,6 +196,10 @@ with tempfile.TemporaryDirectory() as d:
     assert torch.equal(parallel.all_reduce_mean([gw])[0],
                        torch.full((3,), 2.0))
     parallel.destroy()
+
+    # the FIR-fold A/B's CLI on the plain versions, at a small size
+    from migan_tpu_torch.cli import fir_fold
+    assert fir_fold.main(["--device", "cpu"]) == 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
@@ -223,7 +227,8 @@ def test_chip_smoke_imports_neither_jax_nor_migan_tpu():
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module)
             mods.update(f"{node.module}.{a.name}" for a in node.names)
-    for entry in ("demo", "serve", "evaluate", "export", "create_pipeline"):
+    for entry in ("demo", "serve", "evaluate", "export", "create_pipeline",
+                  "fir_fold"):
         assert f"migan_tpu_torch.cli.{entry}" in mods
     assert not [m for m in mods
                 if m.split(".")[0] in ("jax", "jaxlib", "migan_tpu")]

@@ -20,6 +20,7 @@ from migan_tpu_torch.models.migan_kernels import (
     KernelGenerator, kernel_shapes,
 )
 from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
+from migan_tpu_torch.ops.kernels import plan
 from migan_tpu_torch.ops.kernels.plan import (
     CONFIGS, KC, MAX_SMEM_BYTES, NUM_SMS, check_tc_args, launch_plan,
     pixel_tiles, smem_bytes,
@@ -143,10 +144,84 @@ def test_check_tc_args_refuses_widths(c, o, match):
                   torch.zeros(64, 64))
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_phase_input_shared_memory(dtype):
+    """upblock's phase input stages four x_lo windows a stage: 3 more
+    x_lo windows of KC channels in each of the two stages than x_lo; it
+    does not grow with C, every configuration fits a block, and the
+    largest tiles still leave room for one block per SM."""
+    es = 4 if dtype == torch.float32 else 2
+    for cfg in CONFIGS["upblock"]:
+        tw = cfg.tp // cfg.th
+        x_window = (cfg.th // 2 + 2) * (tw // 2 + 2)
+        base = smem_bytes("upblock", cfg, dtype)
+        phase = smem_bytes("upblock", cfg, dtype, plan.UP_PHASE)
+        assert phase - base == 2 * 3 * x_window * KC * es
+        assert phase <= MAX_SMEM_BYTES
+        assert phase + 1024 <= 233_472               # 228 KB per SM
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8])
+def test_option_plans_fill_the_card(n, dtype):
+    """At the shapes the options run at on migan-512 (the phase input at
+    the synthesis levels, the prologue at the top encoder level from the
+    4-channel input, skip at every sepconv shape, and the prologue at
+    Cin = C) a launch has at least one block per SM and fits a block's
+    shared memory; but for the wide prologue, whose window outgrows the
+    large tiles at C = 512, it is the main path's plan at the shape."""
+    for kernel, h, w, c, o, _ in _tc_shapes(512):
+        if kernel == "downblock":
+            continue
+        main = launch_plan(kernel, n, h, w, o, dtype)
+        modes = ([(plan.UP_PHASE, 0)] if kernel == "upblock" else
+                 [(plan.SEP_SKIP, 0), (plan.SEP_PROLOGUE, c),
+                  (plan.SEP_PROLOGUE, 4)])
+        for mode, cin in modes:
+            p = launch_plan(kernel, n, h, w, o, dtype, mode=mode, cin=cin)
+            assert p.blocks >= NUM_SMS, (kernel, h, c, o, mode, p)
+            assert p.smem_bytes <= MAX_SMEM_BYTES
+            if cin != c or c <= 64:
+                assert p.blocks == main.blocks and p.config == main.config
+
+
+def test_prologue_window_that_does_not_fit_raises():
+    """The prologue keeps its [3 (TP + 2), Cin] f32 window for the
+    block's life: a wide input passes over the tiles it outgrows and
+    raises when even the smallest does not hold it."""
+    small = CONFIGS["sepconv"][-1]
+    p = launch_plan("sepconv", 8, 64, 64, 128, torch.float32,
+                    mode=plan.SEP_PROLOGUE, cin=512)
+    assert p.config == len(CONFIGS["sepconv"]) - 1
+    assert p.smem_bytes == smem_bytes("sepconv", small, torch.float32,
+                                      plan.SEP_PROLOGUE, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        launch_plan("sepconv", 8, 64, 64, 128, torch.float32,
+                    mode=plan.SEP_PROLOGUE, cin=2048)
+
+
+def test_check_tc_args_takes_4_channels_only_into_the_prologue():
+    x4, w = torch.zeros(1, 4, 4, 4), torch.zeros(64, 64)
+    check_tc_args("fused_block", x4, w, prologue=True)
+    with pytest.raises(ValueError, match="only the prologue's input"):
+        check_tc_args("fused_block", x4, w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check_tc_args("fused_block", torch.zeros(1, 4, 4, 12), w,
+                      prologue=True)
+
+
 def test_check_tc_args_refuses_misaligned_weights():
     w_pw = torch.zeros(64 * 64 + 1)[1:].view(64, 64)   # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
         check_tc_args("fused_block", torch.zeros(1, 4, 4, 64), w_pw)
+
+
+def test_check_tc_args_refuses_a_misaligned_input():
+    """A contiguous view 4 bytes into its storage (a skip cut from a
+    flat buffer) is refused before any 16-byte copy reads it."""
+    x = torch.zeros(4 * 4 * 64 + 1)[1:].view(1, 4, 4, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        check_tc_args("fused_block", x, torch.zeros(64, 64))
 
 
 def _tf32(a: np.ndarray) -> np.ndarray:
