@@ -107,14 +107,14 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      memory and host masks/s at 256 on one thread, native against PIL;
  10. trains with the fused k-step call: the training CLI (`--experiment
      demo_places128`, full width, batch 32, its steps_per_call 8, u8
-     wire format and native masks) with deterministic algorithms for 32
+     wire format and native masks) with deterministic algorithms for 24
      steps in ticks of one call (R1 at steps 0 and 16: both captured
      graphs replayed), held bit for bit against the same run with
      `--set train.steps_per_call=1` (G, D, the EMA, both Adam states,
      every tick's loss moments); a fused run SIGKILLed after its first
-     checkpoint and resumed to step 32 as the one NCCL rank of
+     checkpoint and resumed to step 24 as the one NCCL rank of
      `torch.distributed.run`, held bit-equal to the uninterrupted run;
-     `demo_places128_kd` for 16 steps with a seeded full-width
+     `demo_places128_kd` for 8 steps with a seeded full-width
      Co-Mod-GAN-128 teacher written by `cli.make_random_teacher`
      (default algorithms); prints for the fused and the sequential run
      s/kimg from the tick lines, host ms per step in the step's call,
@@ -138,6 +138,21 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      A/B (fromrgb then fused_block against one fused_block with fromrgb
      as its prologue, N = 1 and 8, both dtypes), each from launch counts
      of 0, which must show their kernel.
+ 12. the last surfaces: (a) `parallel/spatial.py`'s image-height sharded
+     forward through `cli/spatial.py` as the one rank of
+     `torch.distributed.run` (NCCL refuses
+     two ranks on one card; the CPU tests run 2 and 8 gloo ranks) on
+     migan-512 seeded weights and a [1, 2048, 2048, 4] float32 input,
+     within 1e-5 + 1e-5 relative of `generator_apply`, both timed in
+     turns with their peak memory; (b) `cli/eval_profile.py` at batch 32
+     (the JAX script's split of evaluation's step; its generator is the
+     bf16 kernel chain, 50 forwards counted from launch counts of 0);
+     (c) `cli/weights_day.py --dry-run --device cuda` on seeded example
+     images: exit 0, every leg in `report.json`, each suite's demo run on
+     the card, the `.pt` files read back by `load_weights`; (d)
+     `scripts/training_demo_report.py` (no port: it imports only
+     matplotlib and PIL) on phase 9's run: curves.png and both sheets (left out, with a printed line, where matplotlib is not
+     installed).
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -2217,12 +2232,12 @@ def _mask_rates(res: int) -> dict:
     return rates
 
 
-def phase_ffhq(tmp: str, gpu: str, teacher_path: str) -> None:
+def phase_ffhq(tmp: str, gpu: str, teacher_path: str) -> str:
     """`cli.train --experiment migan_ffhq256` (full width, batch 32, the
     config's losses and KD, native masks) on a seeded zip with two in-loop
     FID evaluations on a seeded NVIDIA TF-named detector; the metric
     branch's records; the best checkpoint's features on the card against
-    the CPU; host mask rates."""
+    the CPU; host mask rates. Returns the run's directory."""
     import subprocess
 
     import numpy as np
@@ -2304,16 +2319,18 @@ def phase_ffhq(tmp: str, gpu: str, teacher_path: str) -> None:
           f"{rates['native']:.1f}/s, PIL {rates['pil']:.1f}/s, "
           f"{rates['native'] / rates['pil']:.1f}x ({os.cpu_count()} host "
           f"cores; {gpu})", flush=True)
+    return run
 
 
 # ---------------------------------------------------------------------------
 # Phase 10: the fused k-step training call, CUDA-graph replays
 # ---------------------------------------------------------------------------
 
-FUSED_STEPS = 32          # R1 at steps 0 and 16 (d_reg_interval 16)
+FUSED_STEPS = 24          # R1 at steps 0 and 16 (d_reg_interval 16):
+                          # both captured graphs replay
 FUSED_SPC = 8             # demo_places128's steps_per_call: a tick per call
 FUSED_BATCH = 32
-KD_STEPS = 16
+KD_STEPS = 8              # one call: both patterns captured, replayed
 # the fused run's reserved device memory (the graphs' pool included) at
 # most this many times the sequential run's: the two captured patterns
 # share one pool, and the one warm-up's cached blocks are given back
@@ -2430,9 +2447,9 @@ def _fused_summary(what: str, log: str, record: str, steps_per_call: int,
           f"phase10 {what}: {len(ticks)} ticks")
     spk = [float(l.split("sec_per_kimg ")[1].split()[0]) for l in ticks]
     devmem = max(float(l.split("devmem ")[1].split("g")[0]) for l in ticks)
-    # host and device time per step over steps 8-23 (ticks 1 and 2, one
-    # R1 step among them) in both modes: not the first call (start-up,
-    # and in fused mode the captures), not the profiled last one
+    # host and device time per step over steps 8-15 (tick 1, no R1 step)
+    # in both modes: not the first call (start-up, and in fused mode the
+    # captures), not the profiled last one
     calls = rec["calls"][FUSED_SPC // steps_per_call:
                          (FUSED_STEPS - FUSED_SPC) // steps_per_call]
     n_steps = len(calls) * steps_per_call
@@ -2454,7 +2471,7 @@ def _fused_summary(what: str, log: str, record: str, steps_per_call: int,
           f"call (its return, not the device's end: it waits where the "
           f"launch queue is full), device {dev_ms:.2f} ms (CUDA events), "
           f"means over steps {FUSED_SPC}-{FUSED_STEPS - FUSED_SPC - 1} "
-          f"({len(calls)} calls, R1 at step 16); one call of "
+          f"({len(calls)} calls, no R1 step); one call of "
           f"{steps_per_call} step(s) under "
           f"torch.profiler: device busy {prof['busy_us'] / 1e3:.1f} ms of a "
           f"{prof['window_us'] / 1e3:.1f} ms window = {100 * busy:.2f}% "
@@ -2503,10 +2520,10 @@ def _adam_capturable_diff(steps: int = 8) -> dict:
 def phase_fused(tmp: str, gpu: str) -> None:
     """`cli.train --experiment demo_places128` (full width, batch 32,
     steps_per_call 8, u8 wire, native masks) with deterministic
-    algorithms, 32 steps of CUDA-graph replays, against the same run with
+    algorithms, 24 steps of CUDA-graph replays, against the same run with
     steps_per_call 1, bit for bit; a fused run SIGKILLed after its first
     checkpoint and resumed as the one NCCL rank of torch.distributed.run,
-    bit-equal to the uninterrupted one; demo_places128_kd 16 steps with a
+    bit-equal to the uninterrupted one; demo_places128_kd 8 steps with a
     seeded full-width Co-Mod-GAN-128 teacher from
     `cli.make_random_teacher` (default algorithms); Adam capturable
     against its default."""
@@ -2566,7 +2583,7 @@ def phase_fused(tmp: str, gpu: str) -> None:
     check(all(np.isfinite(v["mean"]) for r in losses for v in r.values()),
           f"phase10: losses {losses}")
     r1 = [r.get("Loss/r1_penalty", {}).get("num") for r in fused["rows"]]
-    check(r1 == [1.0, None, 1.0, None], f"phase10: R1 stats per tick {r1}")
+    check(r1 == [1.0, None, 1.0], f"phase10: R1 stats per tick {r1}")
     check(fused["reserved"] <= FUSED_RESERVED_RATIO * seq["reserved"],
           f"phase10: the fused run reserved {fused['reserved']:.2f} GiB, "
           f"the sequential {seq['reserved']:.2f} (at most "
@@ -2879,6 +2896,218 @@ def phase_options(results: dict, gpu: str) -> None:
           f"A/B {counts}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the spatially sharded forward as one NCCL rank, the
+# evaluation profile, the weights-day dry run and the training report
+# ---------------------------------------------------------------------------
+
+# The megapixel case of `parallel/spatial.py`: migan-512's weights on one
+# 2048x2048 image, and the JAX test's bound against the one-process
+# forward (tests/test_multihost.py::test_spatial_sharded_inference)
+SPATIAL_SHAPE = (1, 2048, 2048, 4)      # cli/spatial.py's: batch 1,
+                                        # square
+SPATIAL_TOL = 1e-5        # cli/spatial.py's TOL
+SPATIAL_REPS = 3          # timed forwards of each turn, after a warm-up
+EVAL_PROFILE_BS = 32      # the JAX script's 128, capped
+WEIGHTS_DAY_IMAGES = 2    # seeded example images per suite (4 at 512 px
+                          # freeform: the evaluation leg's items)
+
+
+def _spatial_one_rank(tmp: str, gpu: str) -> None:
+    """(a): `cli/spatial.py` (`generator_apply_spatial`) as the one rank
+    of an NCCL group at SPATIAL_SHAPE, held against `generator_apply`
+    within SPATIAL_TOL, both timed."""
+    import subprocess
+
+    weights = os.path.join(tmp, "w512_spatial.npz")
+    make_weights(512, weights)
+    n, h, w, _ = SPATIAL_SHAPE
+    log_path = os.path.join(tmp, "spatial.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "migan_tpu_torch.cli.spatial",
+           "--model-name", "migan-512", "--model-path", weights,
+           "--size", str(h), "--reps",
+           str(SPATIAL_REPS), "--device", "cuda"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=_repo_env(), stdout=log, stderr=subprocess.STDOUT,
+            text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    check(proc.returncode == 0,
+          f"phase12 spatial forward: exit {proc.returncode}\n{text[-4000:]}")
+    check(ONE_RANK_LINE in text, f"phase12 spatial forward: no "
+          f"{ONE_RANK_LINE!r} line\n{text[-2000:]}")
+    rec = json.loads(next(l for l in text.splitlines()
+                          if l.startswith('{"world"')))
+    check(rec["finite"] and rec["shape"] == [n, h, w, 3]
+          and rec["rows"] == h, f"phase12 spatial forward: {rec}")
+    check(rec["excess"] <= 0, f"phase12 spatial forward differs from "
+          f"generator_apply: max |diff| {rec['max_abs_err']:.3e}, beyond "
+          f"{SPATIAL_TOL} + {SPATIAL_TOL} |plain| by {rec['excess']:.3e}")
+    ms = {k: statistics.mean(v) for k, v in rec["ms"].items()}
+    turns = {k: ", ".join(f"{v:.4f}" for v in rec["ms"][k]) for k in ms}
+    print(f"phase12 spatial forward (cli/spatial.py on parallel/spatial.py) "
+          f"as the one rank of torch.distributed.run ({ONE_RANK_LINE}; "
+          f"NCCL refuses two ranks on one card, so the multi-rank proof is "
+          f"the CPU tests' 2 and 8 gloo ranks): migan-512 seeded weights on "
+          f"{list(SPATIAL_SHAPE)} float32 (TF32 off), {rec['rows']} rows "
+          f"on the rank; max |diff| from generator_apply "
+          f"{rec['max_abs_err']:.3e} (bound {SPATIAL_TOL} + {SPATIAL_TOL} "
+          f"|plain|); ms per forward (CUDA events, {SPATIAL_REPS} after a "
+          f"warm-up, in turns plain, spatial, spatial, plain): spatial "
+          f"{ms['spatial']:.4f} ({turns['spatial']}), plain "
+          f"{ms['plain']:.4f} ({turns['plain']}); peak memory allocated "
+          f"spatial {rec['peak_gib']['spatial']:.3f} GiB, plain "
+          f"{rec['peak_gib']['plain']:.3f} GiB; {wall:.1f} s wall, process "
+          f"start to exit ({gpu})", flush=True)
+
+
+def _examples_tree(root: str) -> str:
+    """Seeded stand-ins for the reference repository's examples/: each
+    weights-day suite's images and masks at its resolution (no result
+    images, so the demo legs are run and not compared)."""
+    import numpy as np
+    from PIL import Image
+
+    from migan_tpu_torch.cli import weights_day
+
+    rng = np.random.RandomState(SEED + 120)
+    for suite, model, _, _ in weights_day.SUITES:
+        res = int(model.split("-")[1])
+        n = 2 * WEIGHTS_DAY_IMAGES if suite == "places2_512_freeform" \
+            else WEIGHTS_DAY_IMAGES
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(root, suite, sub))
+        for i in range(n):
+            Image.fromarray(rng.randint(0, 256, (res, res, 3), np.uint8)
+                            ).save(os.path.join(root, suite, "images",
+                                                f"{i}.png"))
+            mask = np.full((res, res), 255, np.uint8)
+            mask[res // 4:res // 2 + res // 8 * (i % 3),
+                 res // 4:3 * res // 4] = 0
+            Image.fromarray(mask).save(
+                os.path.join(root, suite, "masks", f"{i}.png"))
+    return root
+
+
+def phase_tools(tmp: str, gpu: str, results: dict, ffhq_run: str) -> None:
+    """(a) the spatially sharded forward as one NCCL rank; (b)
+    `cli/eval_profile.py` at batch EVAL_PROFILE_BS, driven from launch
+    counts of 0; (c) `cli/weights_day.py --dry-run --device cuda` on
+    seeded example images; (d) `scripts/training_demo_report.py` on
+    phase 9's run, in a child process."""
+    import importlib.util
+    import math
+    import subprocess
+
+    from migan_tpu_torch.cli import eval_profile, weights_day
+    from migan_tpu_torch.io import load_weights
+    from migan_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+
+    t0 = time.perf_counter()
+    _spatial_one_rank(tmp, gpu)
+    print(f"phase12 (a) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (b) the JAX script's split of evaluation's step, batch capped
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    prof = eval_profile.profile(EVAL_PROFILE_BS, device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    record_path(results, "eval_profile", counts)
+    # 4 full-step variants and G alone, each 2 warm-up + 8 timed calls
+    forwards = 5 * 10
+    want = {k: v * forwards for k, v in EXPECTED_LAUNCHES[512].items()}
+    check(counts == want, f"phase12 eval_profile: launches {counts}, "
+          f"expected {want}")
+    check(all(math.isfinite(prof[k]) and prof[k] > 0
+              for k in eval_profile.KEYS), f"phase12 eval_profile: {prof}")
+    print(f"phase12 eval_profile (cli/eval_profile.py, migan-512 kernel "
+          f"chain in bf16, batch {EVAL_PROFILE_BS}, CUDA events, mean of 8 "
+          f"after 2; {gpu}; launches {counts}): {json.dumps(prof)}",
+          flush=True)
+    print(f"phase12 (b) done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (c) the weights-day dry run on the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "weights_day")
+    examples = _examples_tree(os.path.join(tmp, "examples"))
+    rc = weights_day.main(["--dry-run", "--out", out, "--device", "cuda",
+                           "--reference-examples", examples])
+    with open(os.path.join(out, "weights_day.log")) as f:
+        wd_log = f.read()
+    check(rc == 0, f"phase12 weights_day --dry-run: exit {rc}\n"
+          f"{wd_log[-4000:]}")
+    with open(os.path.join(out, "report.json")) as f:
+        report = {r["leg"]: r for r in json.load(f)}
+    legs = ([f"artifact-{k}" for k in weights_day.WEIGHT_PATTERNS]
+            + [s for s, *_ in weights_day.SUITES]
+            + ["eval-run", "eval-fid-parity", "eval-lpips-parity",
+               "golden-regen"])
+    check(list(report) == legs and report["eval-run"]["status"] == "PASS",
+          f"phase12 weights_day legs: {report}")
+    for suite, model, _, _ in weights_day.SUITES:
+        written = os.listdir(os.path.join(out, f"demo_{suite}"))
+        check(report[suite]["status"] == "SKIP" and len(written) == len(
+            os.listdir(os.path.join(examples, suite, "images"))),
+            f"phase12 weights_day {suite}: {report[suite]}, wrote "
+            f"{written}")
+    with open(os.path.join(out, "evaluate.log")) as f:
+        ev_log = f.read()
+    check(wd_log.count("--device cuda") == len(weights_day.SUITES)
+          and "--device cuda" in ev_log,
+          "phase12 weights_day: a leg did not run on the card")
+    for key, res in weights_day.DRY_RUN_MODELS:
+        g = load_weights(report[f"artifact-{key}"]["detail"])
+        check(g.cfg.resolution == res, f"phase12 weights_day {key}: "
+              f"{g.cfg}")
+    print(f"phase12 weights_day --dry-run --device cuda on seeded example "
+          f"images ({WEIGHTS_DAY_IMAGES} a suite, "
+          f"{2 * WEIGHTS_DAY_IMAGES} at places2_512_freeform): exit 0, "
+          + "; ".join(f"{k} {v['status']} {v['detail']}".strip()
+                      for k, v in report.items()
+                      if not k.startswith("artifact-"))
+          + f"; its .pt files load through load_weights; "
+          f"{time.perf_counter() - t0:.1f} s ({gpu})", flush=True)
+
+    # (d) the training report of phase 9's run. The script draws with
+    # matplotlib, which a card's machine may not have (the CPU test covers
+    # it either way): then (d) is left out with a line that says so.
+    if importlib.util.find_spec("matplotlib") is None:
+        print("phase12 (d) scripts/training_demo_report.py left out: "
+              "matplotlib is not installed on this machine "
+              "(tests/test_torch_tools.py runs it on the CPU)", flush=True)
+        return
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "training_report")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts",
+                                      "training_demo_report.py"),
+         "--log-dir", ffhq_run, "--out", out], cwd=root, env=_repo_env(),
+        capture_output=True, text=True, timeout=300)
+    written = [os.path.join(out, n) for n in
+               ("curves.png", "sheet_first.png", "sheet_last.png")]
+    check(proc.returncode == 0 and all(
+        os.path.isfile(p) and os.path.getsize(p) > 0 for p in written),
+          f"phase12 training report: exit {proc.returncode}, wrote "
+          f"{os.listdir(out) if os.path.isdir(out) else None}\n"
+          f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    print(f"phase12 scripts/training_demo_report.py on phase 9's run: "
+          f"{', '.join(os.path.basename(p) for p in written)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _numel(state_dict: dict) -> int:
     return sum(v.numel() for v in state_dict.values())
 
@@ -2930,12 +3159,14 @@ def main() -> int:
         took(7)
         teacher = phase_train(tmp, gpu, results)
         took(8)
-        phase_ffhq(tmp, gpu, teacher)
+        ffhq_run = phase_ffhq(tmp, gpu, teacher)
         took(9)
         phase_fused(tmp, gpu)
         took(10)
         phase_options(results, gpu)
         took(11)
+        phase_tools(tmp, gpu, results, ffhq_run)
+        took(12)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

@@ -8,9 +8,11 @@ from .train_weights import (
     export_migan_train, import_migan_train, load_train_generator,
     load_train_npz, load_train_state, save_train_npz,
 )
-from .weights import load_npz, load_pt, load_weights, save_npz
+from .weights import (export_migan_inference, load_npz, load_pt,
+                      load_weights, save_npz)
 
-__all__ = ["export_migan_train", "import_migan_train",
+__all__ = ["export_migan_inference", "export_migan_train",
+           "import_migan_train",
            "load_reference_snapshot", "loads_reference_snapshot", "load_npz",
            "load_pt", "load_torch_state_dict", "load_train_generator",
            "load_train_npz", "load_train_state", "load_weights", "save_npz",

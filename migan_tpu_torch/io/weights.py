@@ -9,13 +9,13 @@ state_dicts to a `Generator` module, and back to `.npz`.
   `migan_tpu/io/torch_import.py:46-104`). Its keys already follow the
   module tree and its weights are OIHW; the fixed resampling buffers
   (`*.filter.*`, `*.filter_const`) are dropped, since the port computes
-  resampling.
+  resampling. `export_migan_inference` is the way back.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -79,6 +79,17 @@ def load_pt(state_dict: Mapping[str, torch.Tensor],
             raise ValueError(f"unrecognized checkpoint key: {key}")
         state[key] = torch.as_tensor(val).detach().to("cpu", torch.float32)
     return _from_state(state, cfg)
+
+
+def export_migan_inference(generator: Generator) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_pt` (the port's counterpart of
+    `migan_tpu/io/torch_import.py::export_migan_inference`): the learnable
+    subset of a reference `migan_inference.Generator` state_dict, float32
+    on the CPU, conv weights OIHW. The reference module's fixed resampling
+    buffers are not in it, as `load_pt` drops them; `torch.save` of the
+    dict is a `.pt` that `load_weights` reads."""
+    return {k: v.detach().to("cpu", torch.float32).clone()
+            for k, v in generator.state_dict().items()}
 
 
 def load_weights(path: str, cfg: Optional[GeneratorConfig] = None

@@ -181,21 +181,46 @@ def _noise_for(p: SeparableConv, h: int, w: int) -> torch.Tensor:
     return nc * p.noise_strength
 
 
+class Stencils:
+    """The forward's ops that read neighbouring rows (the depthwise 3x3 and
+    the [1,3,3,1] FIR resampling) and its noise at a tensor's size. These
+    are the one-process forward's, zero padding at the image's edges;
+    `parallel/spatial.py` replaces them to run on a block of the image's
+    rows, and every other op of the forward is local to a row."""
+
+    def dw3x3(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, w, padding=1, groups=x.shape[-1])
+
+    def down(self, x: torch.Tensor, f: torch.Tensor,
+             down: int = 2) -> torch.Tensor:
+        return downsample2d(x, f, down=down)
+
+    def up(self, x: torch.Tensor, f: torch.Tensor,
+           up: int = 2) -> torch.Tensor:
+        return upsample2d(x, f, up=up)
+
+    def noise(self, p: SeparableConv, h: int, w: int) -> torch.Tensor:
+        return _noise_for(p, h, w)
+
+
+PLAIN = Stencils()
+
+
 def sep_conv_apply(p: SeparableConv, x: torch.Tensor, f: torch.Tensor, *,
-                   down: int = 1, up: int = 1,
-                   use_noise: bool = False) -> torch.Tensor:
+                   down: int = 1, up: int = 1, use_noise: bool = False,
+                   stencils: Stencils = PLAIN) -> torch.Tensor:
     """SeparableConv2d (reference migan_inference.py:106-170): depthwise
     3x3 (+bias) -> act -> [down] -> pointwise 1x1 -> [up] -> [+noise]
     -> act."""
-    x = conv2d(x, p.conv1.hwio(), padding=1, groups=x.shape[-1])
+    x = stencils.dw3x3(x, p.conv1.hwio())
     x = ACT(x + p.conv1.bias)
     if down > 1:
-        x = downsample2d(x, f, down=down)
+        x = stencils.down(x, f, down=down)
     x = conv2d(x, p.conv2.hwio())
     if up > 1:
-        x = upsample2d(x, f, up=up)
+        x = stencils.up(x, f, up=up)
     if use_noise:
-        n = _noise_for(p, x.shape[1], x.shape[2])
+        n = stencils.noise(p, x.shape[1], x.shape[2])
         x = x + n[None, :, :, None].to(x.dtype)
     return ACT(x)
 
@@ -206,65 +231,75 @@ def conv1x1_apply(p: Conv, x: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_block_apply(p: EncoderBlock, x: Optional[torch.Tensor],
-                        img: Optional[torch.Tensor], f, *, down: int):
+                        img: Optional[torch.Tensor], f, *, down: int,
+                        stencils: Stencils = PLAIN):
     """Reference migan_inference.py:173-200. Returns (x, skip feature)."""
     if p.fromrgb is not None:
         y = ACT(conv1x1_apply(p.fromrgb, img))
         x = x + y if x is not None else y
-    feat = sep_conv_apply(p.conv1, x, f)
-    x = sep_conv_apply(p.conv2, feat, f, down=down)
+    feat = sep_conv_apply(p.conv1, x, f, stencils=stencils)
+    x = sep_conv_apply(p.conv2, feat, f, down=down, stencils=stencils)
     return x, feat
 
 
 def encoder_apply(enc: nn.ModuleDict, cfg: GeneratorConfig,
-                  img: torch.Tensor, f):
+                  img: torch.Tensor, f, stencils: Stencils = PLAIN):
     """Reference migan_inference.py:235-246: the bottleneck and the skip
     features keyed by block level."""
     x = None
     feats: Dict[int, torch.Tensor] = {}
     for resi in cfg.encode_res[:-1]:
         x, feats[resi] = encoder_block_apply(enc[f"b{resi}"], x, img, f,
-                                             down=2)
-    x, feats[4] = encoder_block_apply(enc["b4"], x, img, f, down=1)
+                                             down=2, stencils=stencils)
+    x, feats[4] = encoder_block_apply(enc["b4"], x, img, f, down=1,
+                                      stencils=stencils)
     return x, feats
 
 
 def synthesis_block_apply(p: SynthesisBlock, x: torch.Tensor,
-                          img: torch.Tensor, skip: torch.Tensor, f):
+                          img: torch.Tensor, skip: torch.Tensor, f,
+                          stencils: Stencils = PLAIN):
     """One up-sampling synthesis level (reference migan_inference.py:
     282-315): returns (features, accumulated rgb)."""
-    x = sep_conv_apply(p.conv1, x, f, up=2, use_noise=True)
-    x = sep_conv_apply(p.conv2, x + skip, f, use_noise=True)
-    img = upsample2d(img, f) + conv1x1_apply(p.torgb, x)
+    x = sep_conv_apply(p.conv1, x, f, up=2, use_noise=True,
+                       stencils=stencils)
+    x = sep_conv_apply(p.conv2, x + skip, f, use_noise=True,
+                       stencils=stencils)
+    img = stencils.up(img, f) + conv1x1_apply(p.torgb, x)
     return x, img
 
 
 def synthesis_first_apply(p: SynthesisBlock, x: torch.Tensor,
-                          skip: torch.Tensor, f):
+                          skip: torch.Tensor, f,
+                          stencils: Stencils = PLAIN):
     """The 4x4 level (reference migan_inference.py:249-279)."""
-    x = sep_conv_apply(p.conv1, x, f)
-    x = sep_conv_apply(p.conv2, x + skip, f)
+    x = sep_conv_apply(p.conv1, x, f, stencils=stencils)
+    x = sep_conv_apply(p.conv2, x + skip, f, stencils=stencils)
     return x, conv1x1_apply(p.torgb, x)
 
 
 def synthesis_apply(syn: nn.ModuleDict, cfg: GeneratorConfig,
-                    x: torch.Tensor, feats: Dict[int, torch.Tensor], f):
+                    x: torch.Tensor, feats: Dict[int, torch.Tensor], f,
+                    stencils: Stencils = PLAIN):
     """Reference migan_inference.py:347-352."""
-    x, img = synthesis_first_apply(syn["b4"], x, feats[4], f)
+    x, img = synthesis_first_apply(syn["b4"], x, feats[4], f, stencils)
     for res in cfg.block_res[1:]:
-        x, img = synthesis_block_apply(syn[f"b{res}"], x, img, feats[res], f)
+        x, img = synthesis_block_apply(syn[f"b{res}"], x, img, feats[res], f,
+                                       stencils)
     return img
 
 
 @torch.no_grad()
-def generator_apply(generator: Generator, x: torch.Tensor) -> torch.Tensor:
+def generator_apply(generator: Generator, x: torch.Tensor,
+                    stencils: Stencils = PLAIN) -> torch.Tensor:
     """Plain forward (reference migan_inference.py:362-369). x [N, H, W, 4]
     of the generator's dtype and device, H and W multiples of
-    2**(log2(resolution) - 2). Returns [N, H, W, 3]."""
+    2**(log2(resolution) - 2). Returns [N, H, W, 3]. `stencils` replaces
+    the ops that read neighbouring rows (`parallel/spatial.py`)."""
     cfg = generator.cfg
     f = resample_filter(x.device)
-    z, feats = encoder_apply(generator.encoder, cfg, x, f)
-    return synthesis_apply(generator.synthesis, cfg, z, feats, f)
+    z, feats = encoder_apply(generator.encoder, cfg, x, f, stencils)
+    return synthesis_apply(generator.synthesis, cfg, z, feats, f, stencils)
 
 
 # The reference's Downsample2d / Upsample2d modules hold their fixed 4x4

@@ -28,7 +28,9 @@ NCCL's kernels run on a stream that joins the capture, and the graph
 replays them. The communicator must exist before the capture; the
 capture's eager warm-up step makes it. gloo is never captured: it serves
 the CPU, where the fused call runs its steps eagerly.
-Spatial (image-height) sharding is not ported.
+
+Spatial (image-height) sharding, `spatial_sharding` of the JAX package,
+is `parallel/spatial.py` on the same process group.
 """
 
 from __future__ import annotations

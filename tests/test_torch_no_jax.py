@@ -7,10 +7,12 @@ chain exported), the create_pipeline CLI (a bucket and the dynamic
 program), one step of the training CLI and one fused call of two steps,
 a native mask, an ffhqzip
 item, an in-loop metric evaluation with a random detector, and a 1-rank
-gloo group's gather and gradient all-reduce, and the FIR-fold CLI on the
-CPU, and finds neither in sys.modules. `chip_smoke.py` names neither
+gloo group's gather and gradient all-reduce and its spatially sharded
+forward, the FIR-fold CLI on the CPU, the evaluation profile, the
+weights-day dry run's weights read back, and finds neither in
+sys.modules. `chip_smoke.py` names neither
 in any of its imports, and imports the demo, serve, evaluate, export,
-create_pipeline and fir_fold entry points."""
+create_pipeline, fir_fold, eval_profile and weights_day entry points."""
 
 import ast
 import os
@@ -195,11 +197,28 @@ with tempfile.TemporaryDirectory() as d:
         parallel.all_gather_rows(w[None] * 2).sum(), w)
     assert torch.equal(parallel.all_reduce_mean([gw])[0],
                        torch.full((3,), 2.0))
+    # and the spatial (image-height) sharded forward on it
+    from migan_tpu_torch.models.migan_inference import generator_apply
+    xs = torch.randn(1, 32, 32, 4, generator=torch.Generator().manual_seed(3))
+    ys = parallel.gather_rows(parallel.generator_apply_spatial(
+        g, parallel.shard_rows(xs)))
+    assert torch.allclose(ys, generator_apply(g, xs), rtol=1e-5, atol=1e-5)
     parallel.destroy()
 
     # the FIR-fold A/B's CLI on the plain versions, at a small size
     from migan_tpu_torch.cli import fir_fold
     assert fir_fold.main(["--device", "cpu"]) == 0
+
+    # the two tools: the evaluation profile at a small size, the
+    # weights-day dry run's weights (its legs run in child processes,
+    # which tests/test_torch_tools.py drives) read back
+    from migan_tpu_torch.cli import eval_profile, weights_day
+    from migan_tpu_torch.io import load_weights
+    prof = eval_profile.profile(1, res=32, iters=1, warmup=0, device="cpu")
+    assert set(eval_profile.KEYS) <= set(prof)
+    made = weights_day.make_dry_run_weights(f"{d}/wd")
+    for key, res in weights_day.DRY_RUN_MODELS:
+        assert load_weights(made[key]).cfg.resolution == res
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "migan_tpu" or m.startswith("migan_tpu."))
 print(len(names), bad)
@@ -228,7 +247,7 @@ def test_chip_smoke_imports_neither_jax_nor_migan_tpu():
             mods.add(node.module)
             mods.update(f"{node.module}.{a.name}" for a in node.names)
     for entry in ("demo", "serve", "evaluate", "export", "create_pipeline",
-                  "fir_fold"):
+                  "fir_fold", "eval_profile", "weights_day"):
         assert f"migan_tpu_torch.cli.{entry}" in mods
     assert not [m for m in mods
                 if m.split(".")[0] in ("jax", "jaxlib", "migan_tpu")]

@@ -20,6 +20,12 @@ gloo group through `parallel.maybe_initialize_distributed` and runs
   - d: the discriminator's logits of this rank's rows.
   - train: `train_stage` of a config, 3 steps; saves the final state.
   - evaluate: the evaluate CLI; rank 0 saves the per-item results.
+  - spatial: `generator_apply_spatial` of each case of `inp` (a
+    generator, a global input) on this rank's rows (`shard_rows`, held
+    against `gather_rows`' inverse); saves this rank's output rows per
+    case. A case with `local_noise` makes the noise at the rank's own
+    height, the control. A case whose input the forward refuses saves
+    the `ValueError`'s message instead.
 
 This file imports only the port (and torch, numpy).
 """
@@ -183,6 +189,30 @@ def evaluate(inp, out):
                  fake_acts=details["fake_acts"])
 
 
+def spatial(inp, out):
+    from migan_tpu_torch.models import migan_inference as mi
+    from migan_tpu_torch.parallel import spatial as sp
+
+    a = torch.load(inp, weights_only=False)
+    got = {}
+    orig = sp.RowStencils.noise
+    for case in a["cases"]:
+        g = a["generators"][case["generator"]]
+        x = case["x"].to(next(g.parameters()).dtype)
+        x_local = sp.shard_rows(x)
+        assert x_local.shape[1] == x.shape[1] // parallel.world()
+        assert torch.equal(sp.gather_rows(x_local), x)
+        if case.get("local_noise"):
+            sp.RowStencils.noise = mi.Stencils.noise   # local height
+        try:
+            got[case["name"]] = sp.generator_apply_spatial(g, x_local)
+        except ValueError as e:
+            got[case["name"]] = str(e)
+        finally:
+            sp.RowStencils.noise = orig
+    torch.save(got, f"{out}.{parallel.rank()}")
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     role, inp, out = sys.argv[1:4]
@@ -192,6 +222,6 @@ if __name__ == "__main__":
         parallel.maybe_initialize_distributed("cpu")
         try:
             {"step": step, "fused": fused, "d": d,
-             "train": train}[role](inp, out)
+             "train": train, "spatial": spatial}[role](inp, out)
         finally:
             parallel.destroy()
