@@ -1,0 +1,9 @@
+"""sepconv.roofline_pct: the sepconv kernel's share of its roofline over
+the traced calls (`readings.kernel_roofline`, described by
+`metrics/kernels/sepconv.json`)."""
+
+from portbench.readings import kernel_roofline
+
+
+def read(r):
+    return kernel_roofline(r, "sepconv")
