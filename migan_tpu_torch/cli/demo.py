@@ -28,6 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -80,7 +82,16 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
     migan-<res>: the deploy generator through the kernel chain.
     comodgan-<res>: the Co-Mod-GAN generator on plain ops, as in the JAX
     package (`models.comodgan.load_comodgan_forward`), with ch_base /
-    ch_max, a fixed z from `z_npy` and the noise mode."""
+    ch_max, a fixed z from `z_npy` and the noise mode.
+
+    The load is the set-up span `entry.load`."""
+    with tracing.setup_span("entry.load"):
+        return _load_model(model_name, model_path, dtype, device, ch_base,
+                           ch_max, z_npy, noise_mode)
+
+
+def _load_model(model_name, model_path, dtype, device, ch_base, ch_max,
+                z_npy, noise_mode):
     from ..io import load_weights
     from ..models.migan_inference import GeneratorConfig
     from ..models.migan_kernels import KernelGenerator
@@ -126,14 +137,29 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
 class ModelForward(torch.nn.Module):
     """`load_model`'s forward: [N,H,W,4] array or tensor -> float32
     [N,H,W,3] tensor on the chain's device, through the kernel chain. A
-    module, so that `torch.export` takes it with the chain's weights."""
+    module, so that `torch.export` takes it with the chain's weights.
+
+    Spans: `entry.forward`, with `entry.h2d` (the input's copy) and the
+    generator's spans inside; the instance's first call, which pays the
+    device's lazy set-up, is the set-up span `entry.first_forward`
+    instead."""
 
     def __init__(self, chain, device: torch.device, dtype: torch.dtype):
         super().__init__()
         self.chain, self.device, self.dtype = chain, device, dtype
+        self.first_call = True
 
     def forward(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        if self.first_call and not torch.compiler.is_compiling():
+            self.first_call = False
+            with tracing.setup_span("entry.first_forward"):
+                return self._forward(x)
+        with tracing.span("entry.forward"):
+            return self._forward(x)
+
+    def _forward(self, x) -> torch.Tensor:
+        with tracing.span("entry.h2d"):
+            x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
         return self.chain(x.contiguous()).float()
 
 

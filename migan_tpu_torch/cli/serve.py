@@ -7,7 +7,8 @@ clients share batched forwards through the kernel chain.
 
 Protocol (standard library on both ends), as the JAX package's:
   GET  /healthz  -> {"status": "ok", "model": ..., "resolution": ...,
-                     "mode", "requests_served", "dispatches", "mean_batch"}
+                     "mode", "requests_served", "dispatches", "mean_batch",
+                     "counters"}
   POST /inpaint  -> image/png composite
       body: JSON {"image": <base64 PNG/JPEG>, "mask": <base64 PNG>,
                   "invert_mask": false}
@@ -29,6 +30,30 @@ through the same micro-batcher, so requests of any sizes share forwards.
 
 Every launch goes on the device's current stream. Rows cross threads only
 as CPU numpy arrays, after `.cpu()`.
+
+Spans (`utils/tracing.py`, recorded while a `torch.profiler` session
+runs). A request's spans share its id:
+  serve.request        a POST to /inpaint, from the handler's first line
+                       to the reply written; inside it
+    serve.decode       body to model input (JSON, base64, image decode,
+                       resizes)
+    serve.queue_wait   submitted until the batcher takes it (recorded
+                       by the batcher with explicit times: it crosses
+                       threads)
+    serve.forward_wait taken until its row is handed back (likewise)
+    serve.encode       composite and PNG encode
+    serve.send         the reply's socket write
+  (decode and encode also hold the thread's CPU time)
+  batcher.idle         the batcher blocked on an empty queue
+  batcher.fill         the window for followers after the first request
+  batcher.dispatch     pad, concat, forward, copy out, hand back; its
+                       request is the tuple of its requests' ids; inside
+                       it batcher.copy_out (`.cpu().numpy()`) and the
+                       forward's own spans
+Counters (always on; `/healthz` returns every counter of the process
+under "counters"): serve.requests (POSTs to /inpaint),
+serve.bad_requests (400), serve.errors (500), batcher.dispatches,
+batcher.rows (requests served), batcher.padded_rows.
 """
 
 from __future__ import annotations
@@ -44,6 +69,7 @@ import time
 import numpy as np
 
 from ..data.preprocess import preprocess, read_mask_image, resize_max
+from ..utils import tracing
 
 
 def get_args(argv=None):
@@ -80,13 +106,30 @@ def get_args(argv=None):
 
 
 class _Request:
-    __slots__ = ("x", "event", "result", "error")
+    __slots__ = ("x", "event", "result", "error", "mark")
 
     def __init__(self, x):
         self.x = x            # [1, res, res, 4] float32 numpy
         self.event = threading.Event()
         self.result = None    # [res, res, 3] float32 numpy in [-1, 1]
         self.error = None
+        self.mark = tracing.mark()    # None while nothing is recorded
+
+    def taken(self) -> "_Request":
+        """The batcher took it: its queue wait ends, its forward wait
+        begins."""
+        if self.mark is not None:
+            now = time.perf_counter_ns()
+            tracing.record("serve.queue_wait", self.mark.start_ns, now,
+                           self.mark)
+            self.mark = self.mark._replace(start_ns=now)
+        return self
+
+    def hand_back(self) -> None:
+        if self.mark is not None:
+            tracing.record("serve.forward_wait", self.mark.start_ns,
+                           time.perf_counter_ns(), self.mark)
+        self.event.set()
 
 
 class MicroBatcher:
@@ -137,16 +180,18 @@ class MicroBatcher:
             b = min(b * 2, self.max_batch)
 
     def _drain(self):
-        reqs = [self.queue.get(timeout=0.1)]
-        deadline = time.perf_counter() + self.window_s
-        while len(reqs) < self.max_batch:
-            remaining = deadline - time.perf_counter()
-            if remaining <= 0:
-                break
-            try:
-                reqs.append(self.queue.get(timeout=remaining))
-            except queue.Empty:
-                break
+        with tracing.span("batcher.idle"):
+            reqs = [self.queue.get(timeout=0.1).taken()]
+        with tracing.span("batcher.fill"):
+            deadline = time.perf_counter() + self.window_s
+            while len(reqs) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    reqs.append(self.queue.get(timeout=remaining).taken())
+                except queue.Empty:
+                    break
         return reqs
 
     def _run(self):
@@ -155,21 +200,32 @@ class MicroBatcher:
                 reqs = self._drain()
             except queue.Empty:
                 continue
-            try:
-                bucket = self._bucket(len(reqs))
-                xs = [r.x for r in reqs]
-                pad = bucket - len(xs)
-                if pad:
-                    xs += [np.zeros_like(xs[0])] * pad
-                y = self.forward(np.concatenate(xs, axis=0)).cpu().numpy()
-                self.batch_sizes_served.append(len(reqs))
-                for i, r in enumerate(reqs):
-                    r.result = y[i]
-                    r.event.set()
-            except Exception as e:  # surface device errors to the client
-                for r in reqs:
-                    r.error = f"{type(e).__name__}: {e}"
-                    r.event.set()
+            ids = (tuple(r.mark.request for r in reqs if r.mark)
+                   if tracing.on() else None)
+            with tracing.span("batcher.dispatch", request=ids):
+                self._dispatch(reqs)
+
+    def _dispatch(self, reqs):
+        try:
+            bucket = self._bucket(len(reqs))
+            xs = [r.x for r in reqs]
+            pad = bucket - len(xs)
+            if pad:
+                xs += [np.zeros_like(xs[0])] * pad
+            y = self.forward(np.concatenate(xs, axis=0))
+            with tracing.span("batcher.copy_out"):
+                y = y.cpu().numpy()
+            self.batch_sizes_served.append(len(reqs))
+            tracing.add("batcher.dispatches")
+            tracing.add("batcher.rows", len(reqs))
+            tracing.add("batcher.padded_rows", pad)
+            for i, r in enumerate(reqs):
+                r.result = y[i]
+                r.hand_back()
+        except Exception as e:  # surface device errors to the client
+            for r in reqs:
+                r.error = f"{type(e).__name__}: {e}"
+                r.hand_back()
 
 
 class PipelineRunner:
@@ -269,6 +325,16 @@ def _decode_request(body: bytes, resolution: int):
     return x, img_resized, mask_resized
 
 
+def _png(arr_or_img) -> bytes:
+    from PIL import Image
+
+    img = (arr_or_img if isinstance(arr_or_img, Image.Image)
+           else Image.fromarray(arr_or_img))
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return buf.getvalue()
+
+
 def make_server(forward, resolution: int, host: str, port: int,
                 model_name: str, *, max_batch: int = 16,
                 window_ms: float = 2.0, pipeline_runner=None):
@@ -316,57 +382,68 @@ def make_server(forward, resolution: int, host: str, port: int,
             info["dispatches"] = len(served)
             info["mean_batch"] = (round(sum(served) / len(served), 2)
                                   if served else 0.0)
+            info["counters"] = tracing.counters()
             self._send(200, "application/json", json.dumps(info).encode())
 
-        def _send_png(self, arr_or_img):
-            from PIL import Image
-
-            img = (arr_or_img if isinstance(arr_or_img, Image.Image)
-                   else Image.fromarray(arr_or_img))
-            buf = io.BytesIO()
-            img.save(buf, format="PNG")
-            self._send(200, "image/png", buf.getvalue())
+        def _send_png(self, png: bytes):
+            with tracing.span("serve.send"):
+                self._send(200, "image/png", png)
 
         def _bad_request(self, e: Exception):
+            tracing.add("serve.bad_requests")
             self._send(400, "text/plain",
                        f"bad request: {type(e).__name__}: {e}".encode())
 
+        def _error(self, text: str):
+            tracing.add("serve.errors")
+            self._send(500, "text/plain", text.encode())
+
         def _post_pipeline(self, body: bytes):
             try:
-                img_np, mask_np = _decode_pipeline_request(body)
+                with tracing.span("serve.decode", cpu=True):
+                    img_np, mask_np = _decode_pipeline_request(body)
             except Exception as e:
                 self._bad_request(e)
                 return
             try:
                 out = pipeline_runner.run(img_np, mask_np)
             except Exception as e:  # surface device errors to the client
-                self._send(500, "text/plain",
-                           f"{type(e).__name__}: {e}".encode())
+                self._error(f"{type(e).__name__}: {e}")
                 return
-            self._send_png(out)
+            with tracing.span("serve.encode", cpu=True):
+                png = _png(out)
+            self._send_png(png)
 
         def do_POST(self):
             if self.path != "/inpaint":
                 self._send(404, "text/plain", b"not found")
                 return
+            tracing.add("serve.requests")
+            with tracing.span("serve.request", new_request=True):
+                self._post()
+
+        def _post(self):
             length = int(self.headers.get("Content-Length", "0"))
             body = self.rfile.read(length)
             if pipeline_runner is not None:
                 self._post_pipeline(body)
                 return
             try:
-                x, img_resized, mask_resized = _decode_request(body,
-                                                               resolution)
+                with tracing.span("serve.decode", cpu=True):
+                    x, img_resized, mask_resized = _decode_request(
+                        body, resolution)
             except Exception as e:
                 self._bad_request(e)
                 return
             req = batcher.submit(x)
             req.event.wait()
             if req.error is not None:
-                self._send(500, "text/plain", req.error.encode())
+                self._error(req.error)
                 return
-            self._send_png(postprocess(req.result, img_resized,
+            with tracing.span("serve.encode", cpu=True):
+                png = _png(postprocess(req.result, img_resized,
                                        mask_resized))
+            self._send_png(png)
 
     server = ThreadingHTTPServer((host, port), Handler)
     return server, (pipeline_runner if pipeline_runner is not None

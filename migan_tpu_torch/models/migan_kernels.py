@@ -29,6 +29,7 @@ from torch import nn
 from ..ops import upsample2d
 from ..ops.kernels import fused_block, fused_down_block, fused_up_block
 from ..ops.kernels.sepconv import sepconv_plain
+from ..utils import tracing
 from .migan_inference import (
     ACT, EncoderBlock, Generator, GeneratorConfig, SeparableConv,
     SynthesisBlock, conv1x1_apply, encoder_block_apply, generator_apply,
@@ -105,6 +106,11 @@ class KernelGenerator(nn.Module):
     own resolution, are registered buffers made once, here: build it
     after the generator has its final device, dtype and weights. Being a
     module, it is what `torch.export` takes (`export/torch_export.py`).
+
+    Spans (`utils/tracing.py`): `generator.forward`, and inside it
+    `generator.fromrgb`, `generator.enc.b<r>` for each kernel level,
+    `generator.plain` (the levels below the kernels) and
+    `generator.syn.b<r>` for each kernel level.
     """
 
     def __init__(self, generator: Generator):
@@ -113,6 +119,8 @@ class KernelGenerator(nn.Module):
         self.generator = generator
         self.kernel_res = kernel_levels(cfg)
         self.n_kernel_levels = len(self.kernel_res)
+        self.span_names = {r: (f"generator.enc.b{r}", f"generator.syn.b{r}")
+                           for r in self.kernel_res}
         enc, syn = generator.encoder, generator.synthesis
         with torch.no_grad():
             self.enc_levels = nn.ModuleDict({
@@ -132,6 +140,10 @@ class KernelGenerator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, 4] contiguous, of the generator's dtype and device
         -> [N, H, W, 3]."""
+        with tracing.span("generator.forward"):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.generator
         cfg = g.cfg
         n = self.n_kernel_levels
@@ -142,44 +154,50 @@ class KernelGenerator(nn.Module):
         top = self.kernel_res[0]
 
         # ---- encoder: kernel levels ------------------------------------
-        z = ACT(conv1x1_apply(enc[f"b{top}"].fromrgb, x))
+        with tracing.span("generator.fromrgb"):
+            z = ACT(conv1x1_apply(enc[f"b{top}"].fromrgb, x))
         feats: Dict[int, torch.Tensor] = {}
         for r in self.kernel_res:
             q = self.enc_levels[f"b{r}"]
             w1, w2 = q.conv1, q.conv2
-            feats[r] = fused_block(z, w1.w_dw, w1.b_dw, w1.w_pw)
-            z = fused_down_block(feats[r], w2.w_dw, w2.b_dw, w2.w_pw)
+            with tracing.span(self.span_names[r][0]):
+                feats[r] = fused_block(z, w1.w_dw, w1.b_dw, w1.w_pw)
+                z = fused_down_block(feats[r], w2.w_dw, w2.b_dw, w2.w_pw)
 
         # ---- encoder and synthesis below them: plain ops -----------------
-        for r in cfg.encode_res[n:-1]:
-            z, feats[r] = encoder_block_apply(enc[f"b{r}"], z, None, f,
-                                              down=2)
-        z, feats[4] = encoder_block_apply(enc["b4"], z, None, f, down=1)
-        zz, img = synthesis_first_apply(syn["b4"], z, feats[4], f)
-        for r in cfg.block_res[1:len(cfg.block_res) - n]:
-            zz, img = synthesis_block_apply(syn[f"b{r}"], zz, img, feats[r],
-                                            f)
+        with tracing.span("generator.plain"):
+            for r in cfg.encode_res[n:-1]:
+                z, feats[r] = encoder_block_apply(enc[f"b{r}"], z, None, f,
+                                                  down=2)
+            z, feats[4] = encoder_block_apply(enc["b4"], z, None, f, down=1)
+            zz, img = synthesis_first_apply(syn["b4"], z, feats[4], f)
+            for r in cfg.block_res[1:len(cfg.block_res) - n]:
+                zz, img = synthesis_block_apply(syn[f"b{r}"], zz, img,
+                                                feats[r], f)
 
         # ---- synthesis: kernel levels ----------------------------------
         for r in reversed(self.kernel_res):
             q = self.syn_levels[f"b{r}"]
             w1, w2 = q.conv1, q.conv2
-            if r == self.kernel_res[-1]:
-                t = sepconv_plain(zz, w1.w_dw, w1.b_dw, w1.w_pw,
-                                  final_act=False)
-            else:
-                t = fused_block(zz, w1.w_dw, w1.b_dw, w1.w_pw,
-                                final_act=False)
-            h, w = feats[r].shape[1:3]
-            # static where torch.export traces it: the model's resolution
-            n1, n2 = ((q.noise1, q.noise2) if (h, w) == (r, r)
-                      else self._noise(r, h, w))
-            if r == top:
-                rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
-                                     w2.w_pw, n2, q.w_rgb, q.b_rgb,
-                                     emit_features=False)
-            else:
-                zz, rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
-                                         w2.w_pw, n2, q.w_rgb, q.b_rgb)
-            img = upsample2d(img, f) + rgb
+            with tracing.span(self.span_names[r][1]):
+                if r == self.kernel_res[-1]:
+                    t = sepconv_plain(zz, w1.w_dw, w1.b_dw, w1.w_pw,
+                                      final_act=False)
+                else:
+                    t = fused_block(zz, w1.w_dw, w1.b_dw, w1.w_pw,
+                                    final_act=False)
+                h, w = feats[r].shape[1:3]
+                # static where torch.export traces it: the model's
+                # resolution
+                n1, n2 = ((q.noise1, q.noise2) if (h, w) == (r, r)
+                          else self._noise(r, h, w))
+                if r == top:
+                    rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
+                                         w2.w_pw, n2, q.w_rgb, q.b_rgb,
+                                         emit_features=False)
+                else:
+                    zz, rgb = fused_up_block(t, feats[r], n1, w2.w_dw,
+                                             w2.b_dw, w2.w_pw, n2, q.w_rgb,
+                                             q.b_rgb)
+                img = upsample2d(img, f) + rgb
         return img

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the three fused blocks of the main path,
-with their plain PyTorch versions and launch counters.
+with their plain PyTorch versions. Each launch adds one to the tracer's
+counter `kernels.<kernel>.launches` (`utils/tracing.py`).
 
 Each kernel is a `torch.library` custom op (`migan::fused_block`,
 `migan::fused_down_block`, `migan::fused_up_block`), registered when this
@@ -9,22 +10,22 @@ name: import `migan_tpu_torch` before `torch.export.load` of such a
 launch on a CUDA tensor (`_build.load_library`).
 """
 
-from . import downblock, sepconv, upblock
+from ...utils import tracing
 from .downblock import fused_down_block
 from .sepconv import fused_block
 from .upblock import fused_up_block
 
-_COUNTERS = (sepconv.COUNTER, downblock.COUNTER, upblock.COUNTER)
+KERNELS = ("sepconv", "downblock", "upblock")
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {c.name: c.count for c in _COUNTERS}
+    counts = tracing.counters()
+    return {k: counts.get(f"kernels.{k}.launches", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
-        c.count = 0
+    tracing.reset_counters("kernels.")
 
 
 __all__ = ["fused_block", "fused_down_block", "fused_up_block",

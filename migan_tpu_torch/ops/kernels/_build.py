@@ -15,14 +15,11 @@ import ctypes
 import functools
 import os
 import subprocess
-import threading
-import time
-from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
 
-from ...utils import native_build
+from ...utils import native_build, tracing
 
 _PKG = Path(__file__).resolve().parents[2]           # migan_tpu_torch/
 CSRC = _PKG / "csrc"
@@ -98,36 +95,15 @@ def _check(cmd, returncode: int, log: str) -> None:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
-    point's argument types declared."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    point's argument types declared: the set-up span
+    `kernels.load_library`."""
+    with tracing.setup_span("kernels.load_library"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
-
-
-def timed_build() -> float:
-    """Build and load the library; seconds taken (0 if already loaded)."""
-    t0 = time.perf_counter()
-    load_library()
-    return time.perf_counter() - t0
-
-
-@dataclass
-class LaunchCounter:
-    """Times a kernel was launched; each wrapper adds one per launch,
-    under a lock, since a server launches from its batcher thread while
-    other threads may run forwards or read the counts."""
-
-    name: str
-    count: int = 0
-    _lock: threading.Lock = field(default_factory=threading.Lock,
-                                  repr=False, compare=False)
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
 
 
 def check_device(name: str, t: torch.Tensor) -> None:

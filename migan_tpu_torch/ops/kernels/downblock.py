@@ -17,10 +17,11 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import downsample2d
+from ...utils import tracing
 from . import _build, plan
 from .sepconv import ACT
 
-COUNTER = _build.LaunchCounter("downblock")
+LAUNCHES = "kernels.downblock.launches"
 FIR_TAPS = [1, 3, 3, 1]
 
 
@@ -57,7 +58,7 @@ def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
         b_dw.data_ptr(), w_pw.data_ptr(), out.data_ptr(), n, hh, wh, c, o,
         _build.stream_handle(x.device))
     _build.raise_on_error("fused_down_block", err)
-    COUNTER.add()
+    tracing.add(LAUNCHES)
     return out
 
 

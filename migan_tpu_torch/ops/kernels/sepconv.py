@@ -27,10 +27,11 @@ import torch
 
 from ..bias_act import lrelu_agc
 from ..conv import conv2d
+from ...utils import tracing
 from . import _build, plan
 
 ACT = lrelu_agc(alpha=0.2, gain="sqrt_2", clamp=256)
-COUNTER = _build.LaunchCounter("sepconv")
+LAUNCHES = "kernels.sepconv.launches"
 
 
 def check_options(name: str, x: torch.Tensor, w_dw: torch.Tensor,
@@ -112,7 +113,7 @@ def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
         b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise), out.data_ptr(),
         n, h, w, cin, c, o, int(final_act), _build.stream_handle(x.device))
     _build.raise_on_error("fused_block", err)
-    COUNTER.add()
+    tracing.add(LAUNCHES)
     return out
 
 

@@ -29,11 +29,12 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import upsample2d
+from ...utils import tracing
 from . import _build, plan
 from .downblock import FIR_TAPS
 from .sepconv import ACT
 
-COUNTER = _build.LaunchCounter("upblock")
+LAUNCHES = "kernels.upblock.launches"
 
 
 def _outputs(feat, rgb, emit_features):
@@ -134,7 +135,7 @@ def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
         _build.ptr(rgb), _build.ptr(part), n, hl, wl, c, o,
         _build.stream_handle(dev))
     _build.raise_on_error("fused_up_block", err)
-    COUNTER.add()
+    tracing.add(LAUNCHES)
     return feat, rgb
 
 

@@ -35,8 +35,8 @@ import torch
 from migan_tpu_torch.models.migan_inference import GeneratorConfig
 from migan_tpu_torch.models.migan_kernels import kernel_shapes
 from migan_tpu_torch.ops.kernels import (
-    downblock, fused_block, fused_down_block, fused_up_block, plan, sepconv,
-    upblock,
+    downblock, fused_block, fused_down_block, fused_up_block, launch_counts,
+    plan, sepconv, upblock,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
@@ -70,6 +70,11 @@ def _sep(rng, c, o):
                                                        scale=c ** -0.5)
 
 
+def _launches(mod) -> int:
+    """Launches counted for the kernel of module `mod`."""
+    return launch_counts()[mod.__name__.rsplit(".", 1)[1]]
+
+
 def _on(dev, *ts, dtype=torch.float32):
     return [t.to(dev, dtype) for t in ts]
 
@@ -99,10 +104,10 @@ def _held(dev, kernel, args, dtype, **kw):
         "downblock": (downblock, fused_down_block,
                       downblock.downblock_plain),
         "upblock": (upblock, fused_up_block, upblock.upblock_plain)}[kernel]
-    before = mod.COUNTER.count
+    before = _launches(mod)
     got = fused(*args, **kw)
     torch.cuda.synchronize()
-    assert mod.COUNTER.count == before + 1
+    assert _launches(mod) == before + 1
     want = plain(*args, **kw)
     if isinstance(got, tuple):
         for g, w in zip(got, want):
@@ -116,10 +121,10 @@ def test_sepconv_matches_plain(dev, final_act):
     rng = np.random.RandomState(5)
     args = _on(dev, _r(rng, 2, 24, 40, 96), *_sep(rng, 96, 160),
                _r(rng, 24, 40, scale=0.1))
-    before = sepconv.COUNTER.count
+    before = _launches(sepconv)
     got = fused_block(*args, final_act=final_act)
     torch.cuda.synchronize()
-    assert sepconv.COUNTER.count == before + 1
+    assert _launches(sepconv) == before + 1
     want = sepconv.sepconv_plain(*args, final_act=final_act)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -136,10 +141,10 @@ def test_sepconv_clamp_matches_plain(dev):
 def test_downblock_matches_plain(dev):
     rng = np.random.RandomState(6)
     args = _on(dev, _r(rng, 2, 24, 40, 96), *_sep(rng, 96, 160))
-    before = downblock.COUNTER.count
+    before = _launches(downblock)
     got = fused_down_block(*args)
     torch.cuda.synchronize()
-    assert downblock.COUNTER.count == before + 1
+    assert _launches(downblock) == before + 1
     torch.testing.assert_close(got, downblock.downblock_plain(*args),
                                rtol=1e-4, atol=1e-4)
 
@@ -152,10 +157,10 @@ def test_upblock_matches_plain(dev, emit_features):
                _r(rng, 2 * hl, 2 * wl, scale=0.1), *_sep(rng, c, o),
                _r(rng, 2 * hl, 2 * wl, scale=0.1), _r(rng, o, 3, scale=0.2),
                _r(rng, 3, scale=0.1))
-    before = upblock.COUNTER.count
+    before = _launches(upblock)
     got = fused_up_block(*args, emit_features=emit_features)
     torch.cuda.synchronize()
-    assert upblock.COUNTER.count == before + 1
+    assert _launches(upblock) == before + 1
     want = upblock.upblock_plain(*args, emit_features=emit_features)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
@@ -265,12 +270,12 @@ def test_wrappers_refuse_widths_the_kernels_do_not_take(dev):
     the wrapper raises before it launches, counting nothing."""
     rng = np.random.RandomState(12)
     args = _on(dev, _r(rng, 1, 8, 8, 32), *_sep(rng, 32, 36))
-    before = (sepconv.COUNTER.count, downblock.COUNTER.count)
+    before = (_launches(sepconv), _launches(downblock))
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_block(*args)
     with pytest.raises(ValueError, match="multiples of 8"):
         fused_down_block(*args)
-    assert (sepconv.COUNTER.count, downblock.COUNTER.count) == before
+    assert (_launches(sepconv), _launches(downblock)) == before
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +320,10 @@ def _held_option(dev, kernel, args, dtype, **kw):
         "sepconv": (sepconv, fused_block, sepconv.sepconv_plain),
         "upblock": (upblock, fused_up_block, upblock.upblock_plain)}[kernel]
     f32 = lambda a: a.float() if isinstance(a, torch.Tensor) else a
-    before = mod.COUNTER.count
+    before = _launches(mod)
     got = fused(*args, **kw)
     torch.cuda.synchronize()
-    assert mod.COUNTER.count == before + 1
+    assert _launches(mod) == before + 1
     want = plain(*map(f32, args), **{k: f32(v) for k, v in kw.items()})
     plain16 = plain(*args, **kw)
     for g, w, p16 in zip(_outs(got), _outs(want), _outs(plain16)):
@@ -446,7 +451,7 @@ def test_options_refuse_what_the_kernels_do_not_take(dev):
     skip 4 bytes off 16-byte alignment, a phase input of 4C + 2
     channels: each raises before a launch."""
     rng = np.random.RandomState(29)
-    before = (sepconv.COUNTER.count, upblock.COUNTER.count)
+    before = (_launches(sepconv), _launches(upblock))
     c = 64
     w = _on(dev, *_sep(rng, c, c))
     for cin, prologue, match in ((12, True, "multiples of 8"),
@@ -465,7 +470,7 @@ def test_options_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 4"):
         fused_up_block(args[0][..., :-2].contiguous(), *args[1:],
                        phase_input=True)
-    assert (sepconv.COUNTER.count, upblock.COUNTER.count) == before
+    assert (_launches(sepconv), _launches(upblock)) == before
 
 
 # ---------------------------------------------------------------------------
@@ -681,10 +686,10 @@ def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
               "downblock": torch.ops.migan.fused_down_block}[kernel]
     mod = {"sepconv": sepconv, "downblock": downblock,
            "upblock": upblock}[kernel]
-    before = mod.COUNTER.count
+    before = _launches(mod)
     via_op = op(*args)
     torch.cuda.synchronize()
-    assert mod.COUNTER.count == before + 1
+    assert _launches(mod) == before + 1
     direct = mod._launch(*args)
     if kernel != "upblock":
         via_op, direct = (via_op,), (direct,)

@@ -194,18 +194,21 @@ def test_wrappers_raise_on_unsupported_device():
 
 def test_launch_counter_loses_no_concurrent_add():
     """A server launches from its batcher thread while other threads may
-    run forwards: the counter's add is one locked read-modify-write, so
-    16 threads adding at a tiny switch interval lose no update."""
+    run forwards: a launch's count is one locked read-modify-write of the
+    tracer's counter, so 16 threads adding at a tiny switch interval lose
+    no update of `launch_counts()`."""
     import sys
     import threading
 
-    from migan_tpu_torch.ops.kernels._build import LaunchCounter
+    from migan_tpu_torch.ops.kernels import launch_counts, sepconv
+    from migan_tpu_torch.utils import tracing
 
-    counter, n_threads, n_adds = LaunchCounter("stress"), 16, 5000
+    n_threads, n_adds = 16, 5000
+    before = launch_counts()["sepconv"]
 
     def work():
         for _ in range(n_adds):
-            counter.add()
+            tracing.add(sepconv.LAUNCHES)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -218,4 +221,4 @@ def test_launch_counter_loses_no_concurrent_add():
         assert not any(t.is_alive() for t in threads)
     finally:
         sys.setswitchinterval(interval)
-    assert counter.count == n_threads * n_adds
+    assert launch_counts()["sepconv"] == before + n_threads * n_adds

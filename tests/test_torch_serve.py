@@ -12,6 +12,7 @@ import base64
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -27,6 +28,7 @@ from migan_tpu.models.migan_inference import (
 )
 from migan_tpu_torch.cli import serve
 from migan_tpu_torch.cli.demo import load_model
+from migan_tpu_torch.utils import tracing
 
 RES = 64
 
@@ -195,6 +197,55 @@ def test_concurrent_requests_micro_batch(server):
     assert max(served) > 1, f"expected micro-batching, got batches {served}"
 
 
+def test_spans_and_counters_under_a_profiler(server):
+    """Under a CPU profiler each request has its decode, queue wait,
+    forward wait, encode and send spans, all of its request and children
+    of its `serve.request`; the dispatches hold every request once; and
+    /healthz's counters count the requests sent."""
+    port = server[0]
+    before = _healthz(port)["counters"]
+    tracing.reset()
+    pairs = [_make_pair(seed=30 + i) for i in range(6)]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _concurrently(lambda i: _inpaint(port, *pairs[i]), 6)
+
+    def spans(name):
+        return [s for s in tracing.spans() if s.name == name]
+
+    # a handler records its request's span after the reply's last byte
+    deadline = time.monotonic() + 30
+    while (len(spans("serve.request")) < 6
+           or sum(len(s.request) for s in spans("batcher.dispatch")) < 6):
+        assert time.monotonic() < deadline, tracing.spans()
+        time.sleep(0.01)
+    roots = spans("serve.request")
+    assert len(roots) == 6
+    for root in roots:
+        kids = {s.name: s for s in tracing.spans() if s.parent == root.id}
+        assert set(kids) == {"serve.decode", "serve.queue_wait",
+                             "serve.forward_wait", "serve.encode",
+                             "serve.send"}
+        assert all(s.request == root.id for s in kids.values())
+        assert root.request == root.id
+        assert kids["serve.queue_wait"].end_ns == \
+            kids["serve.forward_wait"].start_ns
+        assert kids["serve.decode"].end_ns <= \
+            kids["serve.queue_wait"].start_ns
+        assert kids["serve.forward_wait"].end_ns <= \
+            kids["serve.encode"].start_ns
+    held = sorted(r for s in spans("batcher.dispatch") for r in s.request)
+    assert held == sorted(root.id for root in roots)
+    after = _healthz(port)["counters"]
+
+    def delta(k):
+        return after.get(k, 0) - before.get(k, 0)
+
+    assert delta("serve.requests") == delta("batcher.rows") == 6
+    assert delta("serve.bad_requests") == delta("serve.errors") == 0
+    assert delta("batcher.dispatches") == len(spans("batcher.dispatch"))
+
+
 def test_pipeline_serve_arbitrary_size_parity(pipeline_server):
     """A non-square request of no bucket's size keeps its size and the
     pixels outside the crop box, and equals the port's pipeline run
@@ -264,6 +315,7 @@ def test_pipeline_healthz_reports_mode(pipeline_server):
 
 def test_bad_request_and_404(server):
     port = server[0]
+    before = _healthz(port)["counters"]
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/inpaint", data=b"not json",
         headers={"Content-Type": "application/json"})
@@ -275,6 +327,9 @@ def test_bad_request_and_404(server):
             urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
                                    timeout=30)
         assert ei.value.code == 404
+    after = _healthz(port)["counters"]
+    for k in ("serve.requests", "serve.bad_requests"):     # 404s uncounted
+        assert after[k] == before.get(k, 0) + 1, k
 
 
 @pytest.mark.parametrize("pipeline", [False, True],

@@ -21,8 +21,7 @@ from migan_tpu.utils import summary as j_summary
 from migan_tpu_torch import ops as tops
 from migan_tpu_torch.cli import calculate_flops
 from migan_tpu_torch.io import load_npz
-from migan_tpu_torch.utils import logging as tlog
-from migan_tpu_torch.utils import summary
+from migan_tpu_torch.utils import summary, tracing
 
 TOL = 1e-6
 
@@ -96,14 +95,15 @@ def test_calculate_flops_against_jax():
 
 
 def test_trace_scopes_in_a_profiler_trace():
-    @tlog.profiled_function
-    def port_profiled_fn(a):
-        return a + 1
-
+    """Under a profiler a span is a range of the profiler's trace and a
+    record of the tracer, with the span around it as its parent."""
+    tracing.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with tlog.trace_scope("port_trace_scope"):
-            port_profiled_fn(torch.ones(3))
+        with tracing.span("port.trace_scope"):
+            with tracing.span("port.inner"):
+                torch.ones(3) + 1
     names = {e.name for e in prof.events()}
-    assert {"port_trace_scope", "port_profiled_fn"} <= names
-    assert port_profiled_fn.__name__ == "port_profiled_fn"
+    assert {"port.trace_scope", "port.inner"} <= names
+    got = {s.name: s for s in tracing.spans()}
+    assert got["port.inner"].parent == got["port.trace_scope"].id
