@@ -20,11 +20,11 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      `load_model`, runs the kernel chain at N = 1 and N = 8 (migan-256 at
      N = 8) in float32 and migan-512 at N = 8 in bfloat16, holds each
      against the plain generator on the same card, and checks that every
-     forward launched 19 (migan-512) or 15 (migan-256) kernels;
+     forward launched 32 (migan-512) or 28 (migan-256) kernels;
   3. runs the demo CLI (`migan_tpu_torch.cli.demo`, `--device cuda`) on
      seeded PNG image/mask pairs, per image and batched, and checks that
      every composite was written at the right size, that the two runs
-     agree, and that the kernels were launched 19 times per forward;
+     agree, and that the kernels were launched 32 times per forward;
   4. times the kernel path and the plain path (median of 20 forwards
      after warm-up, in turns), float32 and, for migan-512, bfloat16;
   5. serves migan-512 (`migan_tpu_torch.cli.serve.make_server`, on
@@ -40,7 +40,7 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      requests/s and p50/p99 latency, and in resize mode the most of the
      time the device can have been busy (the forwards' host-clock time
      per request against the windows'); checks for every run that the
-     clients were batched and that the kernels launched 19 times per
+     clients were batched and that the kernels launched 32 times per
      dispatch; times one request's stages in order on one thread;
   6. runs the evaluation CLI (`migan_tpu_torch.cli.evaluate.main`,
      `--device cuda`) on 136 seeded 512² PNGs with on-the-fly masks and
@@ -64,11 +64,11 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      distances from the training net in float64 on one sample, migan.npz,
      and migan.pt2, the kernel chain through `torch.export`; loads the
      `.pt2` in a fresh process that imports only the port, holds it
-     within 1e-6 of the live chain, counts 19 launches per forward and
+     within 1e-6 of the live chain, counts 32 launches per forward and
      times both at N = 1; then the create_pipeline CLI (buckets 512,1024
      and dynamic H, W) and each loaded program on seeded images up to
      1024x768 within 1 uint8 of the live `make_pipeline` at the same
-     bucket padding, pixels outside the box unchanged, 19 launches per
+     bucket padding, pixels outside the box unchanged, 32 launches per
      call; prints both CLIs' wall times; the fold statistic through the
      kernel chain is held below 0.5% too;
   8. trains: the training CLI (`migan_tpu_torch.cli.train --experiment
@@ -205,8 +205,8 @@ EVAL_LPIPS_ATOL, EVAL_ACTS_RTOL = 1e-4, 1e-3
 # bf16 detectors against float32 (tests/test_evalx.py's bounds): LPIPS
 # relative error, Inception feature relative L2.
 BF16_LPIPS_RTOL, BF16_ACTS_RTOL = 2e-3, 3e-2
-EXPECTED_LAUNCHES = {512: {"sepconv": 9, "downblock": 5, "upblock": 5},
-                     256: {"sepconv": 7, "downblock": 4, "upblock": 4}}
+EXPECTED_LAUNCHES = {512: {"sepconv": 18, "downblock": 7, "upblock": 7},
+                     256: {"sepconv": 16, "downblock": 6, "upblock": 6}}
 SOURCES = {
     "sepconv": ("migan_tpu_torch/csrc/sepconv.cu",
                 "migan_tpu/ops/pallas/sepconv.py:250; "
@@ -822,7 +822,7 @@ class _TimedForward:
 def _serve(srv, batcher, bodies, what: str, tmp: str, gpu: str,
            results: dict, timed: _TimedForward = None) -> list:
     """Serve `bodies` at once, then the sustained load, each with the
-    launch counts from 0; check batching and 19 launches per dispatch.
+    launch counts from 0; check batching and 32 launches per dispatch.
     With `timed`, the server's forward, and no other thread using the
     card, print the most of the sustained run the device can have been
     busy. Returns the burst's replies."""

@@ -106,9 +106,9 @@ def _load_model(model_name, model_path, dtype, device, ch_base, ch_max,
                            "device is available")
     if dev.type == "cuda":
         # float32 means IEEE float32 on the card, as in the kernels: cuDNN
-        # would run the float32 convs below the kernel levels (and the
-        # detectors of cli/evaluate.py) in TF32. A process-wide setting;
-        # bf16 work is not affected by it.
+        # would run the chain's float32 plain convs (fromrgb, the 4x4
+        # torgb, the rgb pyramid) and the detectors of cli/evaluate.py in
+        # TF32. A process-wide setting; bf16 work is not affected by it.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     if m.group(1) == "comodgan":

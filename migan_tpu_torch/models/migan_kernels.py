@@ -3,20 +3,25 @@
 Port of `migan_tpu/models/migan_pallas.py:134-303` (`generator_apply_pallas`)
 without its TPU layouts: no w-packed rows, no batch folding, no
 phase-planar rgb, and no batch-size gate, so the kernels run at every
-batch size. Call for call as on the TPU, the top `n = min(5, log2res - 4)`
-levels run as kernels and the levels below as plain ops:
+batch size. Nor does it keep the JAX chain's level cut: there the top
+`min(5, log2res - 4)` levels run as kernels and XLA fuses the levels
+below, while here every level of the resolution ladder runs through the
+kernels, since a plain op is one more host dispatch on the card:
 
-  encoder, each top level r   fused_block (conv1), fused_down_block (conv2)
-  synthesis, each top level   fused_block with final_act=False (conv1's
-                              low-res half; plain convs at the lowest of
-                              these levels, as migan_pallas.py:253-258),
-                              then fused_up_block (up-sample + skip + conv2
-                              + torgb; features not stored at the top)
+  encoder, each level r > 4   fused_block (conv1), fused_down_block (conv2)
+  encoder b4                  fused_block twice (conv1, then conv2 with
+                              no down-sampling)
+  synthesis b4                fused_block twice (conv1, then conv2 with
+                              the skip option); torgb a plain 1x1 conv
+  synthesis, each level r > 4 fused_block with final_act=False (conv1's
+                              low-res half), then fused_up_block (up-sample
+                              + skip + conv2 + torgb; features not stored
+                              at the top)
 
-so one forward launches 2n-1 sepconv, n downblock and n upblock kernels:
-9 + 5 + 5 for migan-512, 7 + 4 + 4 for migan-256. `fromrgb` stays a plain
-1x1 conv and the rgb pyramid the plain `upsample2d`, as both are outside
-the Pallas kernels in JAX.
+so one forward at resolution 2^k launches 2k sepconv, k - 2
+downblock and k - 2 upblock kernels: 18 + 7 + 7 for migan-512, 16 + 6 + 6
+for migan-256. `fromrgb` stays a plain 1x1 conv and the rgb pyramid the
+plain `upsample2d`, as both are outside the Pallas kernels in JAX.
 """
 
 from __future__ import annotations
@@ -28,13 +33,10 @@ from torch import nn
 
 from ..ops import upsample2d
 from ..ops.kernels import fused_block, fused_down_block, fused_up_block
-from ..ops.kernels.sepconv import sepconv_plain
 from ..utils import tracing
 from .migan_inference import (
     ACT, EncoderBlock, Generator, GeneratorConfig, SeparableConv,
-    SynthesisBlock, conv1x1_apply, encoder_block_apply, generator_apply,
-    resample_filter, synthesis_block_apply, synthesis_first_apply,
-    _noise_for,
+    SynthesisBlock, conv1x1_apply, resample_filter, _noise_for,
 )
 
 
@@ -51,23 +53,28 @@ class SepWeights(nn.Module):
         self.register_buffer("w_pw",          # [C, O]
                              p.conv2.weight[:, :, 0, 0].t().contiguous())
 
+    @property
+    def args(self) -> Tuple[torch.Tensor, ...]:
+        """(w_dw, b_dw, w_pw), the kernels' weight arguments in order."""
+        return self.w_dw, self.b_dw, self.w_pw
 
-class _EncoderLevel(nn.Module):
-    """An encoder kernel level: conv1 and conv2 (`SepWeights`)."""
 
-    def __init__(self, p: EncoderBlock):
+class _Level(nn.Module):
+    """A level's conv1 and conv2 (`SepWeights`): each encoder level, and
+    synthesis b4."""
+
+    def __init__(self, p: EncoderBlock | SynthesisBlock):
         super().__init__()
         self.conv1, self.conv2 = SepWeights(p.conv1), SepWeights(p.conv2)
 
 
-class _SynthesisLevel(nn.Module):
-    """A synthesis kernel level: conv1, conv2 (`SepWeights`), torgb's
-    w_rgb [O, 3] and b_rgb [3], and the two scaled noise planes at the
-    level's own resolution."""
+class _SynthesisLevel(_Level):
+    """An up-sampling synthesis level: conv1, conv2, torgb's w_rgb [O, 3]
+    and b_rgb [3], and the two scaled noise planes at the level's own
+    resolution."""
 
     def __init__(self, p: SynthesisBlock, noise):
-        super().__init__()
-        self.conv1, self.conv2 = SepWeights(p.conv1), SepWeights(p.conv2)
+        super().__init__(p)
         self.register_buffer("w_rgb", p.torgb.weight[:, :, 0, 0].t()
                              .contiguous())
         self.register_buffer("b_rgb", p.torgb.bias.clone())
@@ -76,25 +83,26 @@ class _SynthesisLevel(nn.Module):
 
 
 def kernel_levels(cfg: GeneratorConfig) -> List[int]:
-    """Resolutions of the levels that run as kernels, top first."""
-    top = cfg.encode_res[0]
-    return [top >> i for i in range(max(0, min(5, cfg.log2res - 4)))]
+    """Resolutions of the levels that run a down- and an up-sampling
+    kernel, top first: every level above 4. The 4x4 level, which
+    resamples nothing, runs as four sepconv launches."""
+    return cfg.encode_res[:-1]
 
 
 def kernel_shapes(cfg: GeneratorConfig) -> List[Tuple]:
     """(kernel, H, W, C, O, final_act) of every launch of one
     `KernelGenerator` forward, in call order: H, W, C the input's size
     (x_lo's for upblock), O the output channels; final_act only for
-    sepconv."""
+    sepconv. The fourth 4x4 sepconv takes the skip option."""
     levels = kernel_levels(cfg)
     shapes = []
     for r in levels:
         shapes.append(("sepconv", r, r, cfg.ch(r), cfg.ch(r), True))
         shapes.append(("downblock", r, r, cfg.ch(r), cfg.ch(r // 2), None))
+    shapes += [("sepconv", 4, 4, cfg.ch(4), cfg.ch(4), True)] * 4
     for r in reversed(levels):
         h = r // 2
-        if r != levels[-1]:
-            shapes.append(("sepconv", h, h, cfg.ch(h), cfg.ch(r), False))
+        shapes.append(("sepconv", h, h, cfg.ch(h), cfg.ch(r), False))
         shapes.append(("upblock", h, h, cfg.ch(r), cfg.ch(r), None))
     return shapes
 
@@ -108,9 +116,8 @@ class KernelGenerator(nn.Module):
     module, it is what `torch.export` takes (`export/torch_export.py`).
 
     Spans (`utils/tracing.py`): `generator.forward`, and inside it
-    `generator.fromrgb`, `generator.enc.b<r>` for each kernel level,
-    `generator.plain` (the levels below the kernels) and
-    `generator.syn.b<r>` for each kernel level.
+    `generator.fromrgb`, then `generator.enc.b<r>` and
+    `generator.syn.b<r>` for each level, 4 included.
     """
 
     def __init__(self, generator: Generator):
@@ -118,16 +125,16 @@ class KernelGenerator(nn.Module):
         cfg = generator.cfg
         self.generator = generator
         self.kernel_res = kernel_levels(cfg)
-        self.n_kernel_levels = len(self.kernel_res)
         self.span_names = {r: (f"generator.enc.b{r}", f"generator.syn.b{r}")
-                           for r in self.kernel_res}
+                           for r in cfg.encode_res}
         enc, syn = generator.encoder, generator.synthesis
         with torch.no_grad():
             self.enc_levels = nn.ModuleDict({
-                f"b{r}": _EncoderLevel(enc[f"b{r}"]) for r in self.kernel_res})
+                f"b{r}": _Level(enc[f"b{r}"]) for r in cfg.encode_res})
             self.syn_levels = nn.ModuleDict({
                 f"b{r}": _SynthesisLevel(syn[f"b{r}"], self._noise(r, r, r))
                 for r in self.kernel_res})
+            self.syn_levels["b4"] = _Level(syn["b4"])
 
     def _noise(self, r: int, h: int, w: int):
         """Level r's two scaled noise planes at [h, w], contiguous."""
@@ -145,59 +152,44 @@ class KernelGenerator(nn.Module):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.generator
-        cfg = g.cfg
-        n = self.n_kernel_levels
-        if n == 0:
-            return generator_apply(g, x)
         f = resample_filter(x.device)
-        enc, syn = g.encoder, g.synthesis
         top = self.kernel_res[0]
 
-        # ---- encoder: kernel levels ------------------------------------
+        # ---- encoder ---------------------------------------------------
         with tracing.span("generator.fromrgb"):
-            z = ACT(conv1x1_apply(enc[f"b{top}"].fromrgb, x))
+            z = ACT(conv1x1_apply(g.encoder[f"b{top}"].fromrgb, x))
         feats: Dict[int, torch.Tensor] = {}
         for r in self.kernel_res:
             q = self.enc_levels[f"b{r}"]
-            w1, w2 = q.conv1, q.conv2
             with tracing.span(self.span_names[r][0]):
-                feats[r] = fused_block(z, w1.w_dw, w1.b_dw, w1.w_pw)
-                z = fused_down_block(feats[r], w2.w_dw, w2.b_dw, w2.w_pw)
+                feats[r] = fused_block(z, *q.conv1.args)
+                z = fused_down_block(feats[r], *q.conv2.args)
+        q = self.enc_levels["b4"]
+        with tracing.span(self.span_names[4][0]):
+            feats[4] = fused_block(z, *q.conv1.args)
+            z = fused_block(feats[4], *q.conv2.args)
 
-        # ---- encoder and synthesis below them: plain ops -----------------
-        with tracing.span("generator.plain"):
-            for r in cfg.encode_res[n:-1]:
-                z, feats[r] = encoder_block_apply(enc[f"b{r}"], z, None, f,
-                                                  down=2)
-            z, feats[4] = encoder_block_apply(enc["b4"], z, None, f, down=1)
-            zz, img = synthesis_first_apply(syn["b4"], z, feats[4], f)
-            for r in cfg.block_res[1:len(cfg.block_res) - n]:
-                zz, img = synthesis_block_apply(syn[f"b{r}"], zz, img,
-                                                feats[r], f)
-
-        # ---- synthesis: kernel levels ----------------------------------
+        # ---- synthesis -------------------------------------------------
+        q = self.syn_levels["b4"]
+        with tracing.span(self.span_names[4][1]):
+            zz = fused_block(z, *q.conv1.args)
+            zz = fused_block(zz, *q.conv2.args, skip=feats[4])
+            img = conv1x1_apply(g.synthesis["b4"].torgb, zz)
         for r in reversed(self.kernel_res):
             q = self.syn_levels[f"b{r}"]
-            w1, w2 = q.conv1, q.conv2
+            w2 = q.conv2.args
             with tracing.span(self.span_names[r][1]):
-                if r == self.kernel_res[-1]:
-                    t = sepconv_plain(zz, w1.w_dw, w1.b_dw, w1.w_pw,
-                                      final_act=False)
-                else:
-                    t = fused_block(zz, w1.w_dw, w1.b_dw, w1.w_pw,
-                                    final_act=False)
+                t = fused_block(zz, *q.conv1.args, final_act=False)
                 h, w = feats[r].shape[1:3]
                 # static where torch.export traces it: the model's
                 # resolution
                 n1, n2 = ((q.noise1, q.noise2) if (h, w) == (r, r)
                           else self._noise(r, h, w))
                 if r == top:
-                    rgb = fused_up_block(t, feats[r], n1, w2.w_dw, w2.b_dw,
-                                         w2.w_pw, n2, q.w_rgb, q.b_rgb,
-                                         emit_features=False)
+                    rgb = fused_up_block(t, feats[r], n1, *w2, n2, q.w_rgb,
+                                         q.b_rgb, emit_features=False)
                 else:
-                    zz, rgb = fused_up_block(t, feats[r], n1, w2.w_dw,
-                                             w2.b_dw, w2.w_pw, n2, q.w_rgb,
-                                             q.b_rgb)
+                    zz, rgb = fused_up_block(t, feats[r], n1, *w2, n2,
+                                             q.w_rgb, q.b_rgb)
                 img = upsample2d(img, f) + rgb
         return img

@@ -210,19 +210,24 @@ def test_upblock_rgb_is_the_same_from_run_to_run(dev, n, hl, wl, c, o,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 16])
 @pytest.mark.parametrize("shape", MAIN_SHAPES,
                          ids=lambda s: "{}-{}x{}-{}to{}-{}".format(*s))
-def test_main_path_shapes_match_plain(dev, shape, dtype):
-    """Every kernel shape of a migan-512 forward, N = 1 (upblock with
-    both outputs)."""
+def test_main_path_shapes_match_plain(dev, shape, n, dtype):
+    """Every kernel shape of a migan-512 forward, from the top level down
+    to the 4x4 one, at N = 1 and 16 (upblock with both outputs). In
+    bfloat16 at N = 16, up to 2.7e8 elements, held as `_held_option`
+    holds the options: at that count a few elements of the plain bfloat16
+    version itself fall outside the tolerance of the float32 result."""
     kernel, h, w, c, o, final_act = shape
-    rng = np.random.RandomState(h + c + o)
+    rng = np.random.RandomState(h + c + o + n)
     if kernel == "upblock":
-        args = _on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype)
+        args = _on(dev, *_up(rng, n, h, w, c, o), dtype=dtype)
     else:
-        args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
+        args = _on(dev, _r(rng, n, h, w, c), *_sep(rng, c, o), dtype=dtype)
     kw = {} if final_act is None else {"final_act": final_act}
-    _held(dev, kernel, args, dtype, **kw)
+    held = _held_option if n > 1 else _held
+    held(dev, kernel, args, dtype, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -305,9 +310,10 @@ def _outs(out):
 
 
 def _held_option(dev, kernel, args, dtype, **kw):
-    """`_held` for the options. In bfloat16 the reference is the plain
-    version in float32 on the same bfloat16 inputs, at the same bf16
-    tolerance: the options' plain compositions round two or three times
+    """`_held` for the options, and for the main-path shapes at N = 16.
+    In bfloat16 the reference is the plain version in float32 on the same
+    bfloat16 inputs, at the same bf16 tolerance: the options' plain
+    compositions round two or three times
     more than the kernels (x + skip; the prologue's conv, bias and act;
     the phase input's noise and act), so against the plain bfloat16
     version a few elements in millions fall outside it, as both drift
@@ -318,6 +324,8 @@ def _held_option(dev, kernel, args, dtype, **kw):
         return _held(dev, kernel, args, dtype, **kw)
     mod, fused, plain = {
         "sepconv": (sepconv, fused_block, sepconv.sepconv_plain),
+        "downblock": (downblock, fused_down_block,
+                      downblock.downblock_plain),
         "upblock": (upblock, fused_up_block, upblock.upblock_plain)}[kernel]
     f32 = lambda a: a.float() if isinstance(a, torch.Tensor) else a
     before = _launches(mod)
@@ -341,6 +349,8 @@ def _held_option(dev, kernel, args, dtype, **kw):
     (2, 32, 32, 8, 128, 128, "prologue"),    # the JAX wide-prologue shape
     (1, 512, 512, 4, 64, 64, "prologue"),    # fromrgb into the top conv1
     (1, 512, 512, 64, 64, 64, "skip"),
+    (1, 4, 4, 512, 512, 512, "skip"),        # synthesis b4's conv2
+    (16, 4, 4, 512, 512, 512, "skip"),
     (3, 18, 10, 4, 40, 24, "both"),          # ragged tiles, K and O
     (2, 6, 14, 16, 40, 24, "prologue"),      # one ragged K chunk
 ])
@@ -539,8 +549,9 @@ def test_detectors_on_card_match_cpu(dev):
 
 def test_load_model_keeps_float32_out_of_tf32(dev, tmp_path):
     """`load_model` on the card turns TF32 off for cuDNN and matmuls, so
-    the float32 convs below the kernel levels and the detectors of the
-    serve and evaluate CLIs run in IEEE float32, as the kernels do."""
+    the chain's float32 plain convs (fromrgb, the 4x4 level's torgb, the
+    rgb pyramid) and the detectors of the serve and evaluate CLIs run in
+    IEEE float32, as the kernels do."""
     from migan_tpu_torch.cli.demo import load_model
 
     torch.backends.cudnn.allow_tf32 = True
@@ -550,10 +561,35 @@ def test_load_model_keeps_float32_out_of_tf32(dev, tmp_path):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
+@pytest.mark.parametrize("res,n,h,w", [(256, 1, 256, 256),
+                                       (512, 2, 512, 384)])
+def test_kernel_chain_matches_plain_on_card(dev, res, n, h, w):
+    """The kernel chain, every level from the top down to the 4x4 one
+    through the kernels, against the plain forward on the card in
+    float32: migan-256 at N = 1 (one image a call), and migan-512 at a
+    non-square input, whose noise is cropped at every level."""
+    from migan_tpu_torch.cli.trace import seeded_generator
+    from migan_tpu_torch.models.migan_inference import generator_apply
+    from migan_tpu_torch.models.migan_kernels import KernelGenerator
+    from migan_tpu_torch.ops.kernels import reset_launch_counts
+
+    g = seeded_generator(res, res + 1).to(dev).eval()
+    rng = np.random.RandomState(res)
+    x = _on(dev, _r(rng, n, h, w, 4, scale=0.5))[0]
+    reset_launch_counts()
+    got = KernelGenerator(g)(x)
+    torch.cuda.synchronize()
+    k = int(np.log2(res))
+    assert launch_counts() == {"sepconv": 2 * k, "downblock": k - 2,
+                               "upblock": k - 2}
+    want = generator_apply(g, x)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=2e-3)
+
+
 def test_served_replies_match_direct_program(dev, tmp_path):
     """migan-256 behind the port's server on the card: 6 concurrent
     requests, batched, each reply within 1 uint8 of the direct program
-    at N = 1, and 15 kernel launches per dispatch."""
+    at N = 1, and 28 kernel launches per dispatch."""
     import base64
     import io
     import json
@@ -613,9 +649,9 @@ def test_served_replies_match_direct_program(dev, tmp_path):
         srv.server_close()
         batcher.close()
     assert sum(served) == len(bodies) and max(served) > 1, served
-    assert counts == {"sepconv": 7 * len(served),
-                      "downblock": 4 * len(served),
-                      "upblock": 4 * len(served)}
+    assert counts == {"sepconv": 16 * len(served),
+                      "downblock": 6 * len(served),
+                      "upblock": 6 * len(served)}
     for body, got in zip(bodies, replies):
         x, img_r, mask_r = serve._decode_request(body, res)
         want = postprocess(fwd(x).cpu().numpy()[0], img_r, mask_r)
@@ -699,8 +735,8 @@ def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
 
 def test_exported_chain_runs_the_kernels_on_card(dev, tmp_path):
     """A `.pt2` of a migan-64 kernel chain, exported and loaded on the
-    card: the loaded program launches the chain's kernels (3 sepconv, 2
-    downblock, 2 upblock per forward) and equals the live chain
+    card: the loaded program launches the chain's kernels (12 sepconv, 4
+    downblock, 4 upblock per forward) and equals the live chain
     exactly."""
     from migan_tpu_torch.cli.demo import load_model
     from migan_tpu_torch.export import torch_export
@@ -716,7 +752,7 @@ def test_exported_chain_runs_the_kernels_on_card(dev, tmp_path):
     reset_launch_counts()
     got = loaded(x)
     torch.cuda.synchronize()
-    assert launch_counts() == {"sepconv": 3, "downblock": 2, "upblock": 2}
+    assert launch_counts() == {"sepconv": 12, "downblock": 4, "upblock": 4}
     assert torch.equal(got, want)
 
 

@@ -13,6 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from migan_tpu.io.checkpoint import save_npz as j_save_npz
 from migan_tpu.models.migan_inference import (
@@ -25,6 +26,7 @@ from migan_tpu_torch.models.migan_inference import (
     GeneratorConfig, count_params, generator_apply, generator_init,
 )
 from migan_tpu_torch.models.migan_kernels import KernelGenerator
+from migan_tpu_torch.utils import tracing
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,8 +80,9 @@ def test_generator_matches_jax(pair, wide):
 
 
 def test_kernel_chain_calls_each_fused_op(pair, monkeypatch):
-    """Per forward: 2n-1 sepconv, n downblock and n upblock calls over the
-    top n = min(5, log2(res) - 4) levels (the same as the JAX chain)."""
+    """Per forward at resolution 2^k: 2k sepconv, k - 2 downblock and
+    k - 2 upblock calls, every level of the ladder through the kernels
+    (the 4x4 level as four sepconv calls)."""
     _, jcfg, g = pair
     calls = {"fused_block": 0, "fused_down_block": 0, "fused_up_block": 0}
     for name in calls:
@@ -92,9 +95,9 @@ def test_kernel_chain_calls_each_fused_op(pair, monkeypatch):
         monkeypatch.setattr(migan_kernels, name, counted)
     res = jcfg.resolution
     KernelGenerator(g)(torch.zeros(1, res, res, 4))
-    n = min(5, int(np.log2(res)) - 4)
-    assert calls == {"fused_block": 2 * n - 1, "fused_down_block": n,
-                     "fused_up_block": n}
+    k = int(np.log2(res))
+    assert calls == {"fused_block": 2 * k, "fused_down_block": k - 2,
+                     "fused_up_block": k - 2}
 
 
 @pytest.mark.parametrize("res,expected", [(256, 5_943_617),
@@ -122,13 +125,82 @@ def test_init_statistics():
     assert g.synthesis["b64"].conv1.noise_strength.item() == 0.0
 
 
-def test_kernel_chain_without_kernel_levels_is_plain():
-    """migan-16 has no level at the kernels' sizes (n = 0): the chain is
-    the plain forward."""
-    g = generator_init(GeneratorConfig(resolution=16, ch_base=512),
-                       torch.Generator().manual_seed(1))
+def _noisy(res, ch_base, seed):
+    """A seeded `Generator` with non-zero noise strengths."""
+    g = generator_init(GeneratorConfig(resolution=res, ch_base=ch_base),
+                       torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, p in g.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(float(rng.randn()) * 0.5)
+    return g
+
+
+def test_kernel_chain_at_migan16_matches_plain():
+    """migan-16's two levels, 16 and 8, and its 4x4 level run through the
+    kernels (their plain versions here): the chain equals the plain
+    forward."""
+    g = _noisy(16, 512, 1)
     x = torch.from_numpy(np.random.RandomState(2).randn(2, 16, 16, 4)
                          .astype(np.float32))
     chain = KernelGenerator(g)
-    assert chain.n_kernel_levels == 0
-    assert torch.equal(chain(x), generator_apply(g, x))
+    assert chain.kernel_res == [16, 8]
+    torch.testing.assert_close(chain(x), generator_apply(g, x))
+
+
+def test_kernel_chain_matches_plain_at_a_non_square_input():
+    """migan-512's ladder (narrow channels) at 512 x 384: every level's
+    noise is cropped from the trained planes (`_noise(r, h, w)`), down to
+    the 8 x 6 level, and the 4x4 level is 4 x 3."""
+    g = _noisy(512, 4096, 5)
+    x = torch.from_numpy(np.random.RandomState(6).randn(1, 512, 384, 4)
+                         .astype(np.float32))
+    got = KernelGenerator(g)(x)
+    assert got.shape == (1, 512, 384, 3)
+    torch.testing.assert_close(got, generator_apply(g, x))
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the ops dispatched inside it: aten ops, and each `migan::`
+    kernel op as one (its plain version runs below the mode)."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = self.kernels = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.total += 1
+        self.kernels += func.namespace == "migan"
+        return func(*args, **(kwargs or {}))
+
+
+# (most ops, kernel launches) of one forward of the chain at N = 1 and the
+# model's own resolution: 143 and 163 ops measured, with a little room; a
+# level run as plain ops dispatches 42-88, so one creeping back exceeds it
+OP_BUDGET = {256: (150, 28), 512: (170, 32)}
+
+
+@pytest.mark.parametrize("res", sorted(OP_BUDGET))
+def test_kernel_chain_dispatches_few_ops(res):
+    """One forward at N = 1 dispatches at most the budget's ops, of which
+    exactly 2k + 2 (k - 2) are kernel launches (28 at 256, 32 at 512),
+    and records no `generator.plain` span: no level runs as plain ops.
+    The channels are narrow; the count depends on the ladder alone."""
+    g = _noisy(res, res * 8, 3)
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, res, res, 4)
+                         .astype(np.float32))
+    chain = KernelGenerator(g)
+    with _CountOps() as ops:
+        chain(x)
+    budget, kernels = OP_BUDGET[res]
+    assert ops.kernels == kernels
+    assert ops.total <= budget, ops.total
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        chain(x)
+    names = {s.name for s in tracing.spans()}
+    assert "generator.plain" not in names
+    assert {"generator.enc.b4", "generator.syn.b4",
+            "generator.enc.b8", "generator.syn.b8"} <= names

@@ -39,8 +39,8 @@ def _burn(seconds: float) -> None:
 
 @pytest.fixture
 def model(tmp_path):
-    """A fresh migan-64 `load_model` forward on the CPU: two kernel levels
-    (plain versions), levels 16-4 plain."""
+    """A fresh migan-64 `load_model` forward on the CPU: every level
+    through the kernel ops (their plain versions)."""
     path = str(tmp_path / "g.npz")
     save_npz(path, generator_init(GeneratorConfig(resolution=64),
                                   torch.Generator().manual_seed(3)))
@@ -130,8 +130,9 @@ def test_no_program_span_takes_a_name_kept_outside_the_program():
         text = p.read_text()
         names |= set(site.findall(text))
         names |= {m + "<r>" for m in level.findall(text)}
-    assert {"serve.request", "generator.plain", "entry.first_forward",
+    assert {"serve.request", "generator.fromrgb", "entry.first_forward",
             "kernels.load_library"} <= names
+    assert "generator.plain" not in names
     for n in names:
         assert n not in ("forward", "d2h"), n
         assert not n.startswith(("portbench.", "migan::")), n
@@ -181,9 +182,9 @@ def test_counters_lose_no_add_under_threads():
     assert not any(k.startswith("stress.") for k in tracing.counters())
 
 
-LEVELS = {"generator.forward", "generator.fromrgb", "generator.enc.b64",
-          "generator.enc.b32", "generator.plain", "generator.syn.b32",
-          "generator.syn.b64"}
+LEVELS = {"generator.forward", "generator.fromrgb",
+          *(f"generator.{side}.b{r}" for side in ("enc", "syn")
+            for r in (64, 32, 16, 8, 4))}
 
 
 def test_load_model_forward_spans(model):
@@ -210,7 +211,9 @@ def test_load_model_forward_spans(model):
     assert by["generator.forward"].parent == by["entry.forward"].id
     for name in LEVELS - {"generator.forward"}:
         assert by[name].parent == by["generator.forward"].id
-    assert by["generator.plain"].wall_ns < by["generator.forward"].wall_ns
+    assert "generator.plain" not in by
+    for name in LEVELS - {"generator.forward"}:
+        assert by[name].wall_ns < by["generator.forward"].wall_ns
     assert LEVELS <= {e.name for e in prof.events()}
     assert [s.name for s in tracing.spans()].count(
         "entry.first_forward") == 1
