@@ -10,7 +10,7 @@ The MI-GAN generator runs through the kernel chain
 (`models/migan_kernels.py`); on `--device cpu` the chain's fused ops take
 their plain versions. `comodgan-256/512` (the distillation teacher) runs
 on plain ops, as in the JAX package, with its `--ch-base`, `--ch-max`,
-`--z-npy` and `--noise-mode`.
+`--z-npy` and `--noise-mode`, through the same entry module.
 Pre/post-processing is the port's `data/preprocess.py` (numpy and PIL),
 imported where files are read.
 """
@@ -77,12 +77,12 @@ def load_model(model_name: str, model_path: str, dtype: str = "float32",
                device: str = "cuda", ch_base=None, ch_max=None,
                z_npy=None, noise_mode: str = "random"):
     """Returns (forward, resolution). forward: [N,H,W,4] array or tensor
-    -> float32 [N,H,W,3] tensor on `device`.
+    -> float32 [N,H,W,3] tensor on `device`, a `ModelForward` around:
 
     migan-<res>: the deploy generator through the kernel chain.
     comodgan-<res>: the Co-Mod-GAN generator on plain ops, as in the JAX
-    package (`models.comodgan.load_comodgan_forward`), with ch_base /
-    ch_max, a fixed z from `z_npy` and the noise mode.
+    package (`models.comodgan.CoModGANForward`), with ch_base / ch_max, a
+    fixed z from `z_npy` and the noise mode.
 
     The load is the set-up span `entry.load`."""
     with tracing.setup_span("entry.load"):
@@ -111,6 +111,7 @@ def _load_model(model_name, model_path, dtype, device, ch_base, ch_max,
         # TF32. A process-wide setting; bf16 work is not affected by it.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    dt = DTYPES[dtype]
     if m.group(1) == "comodgan":
         from ..models.comodgan import CoModGANConfig, load_comodgan_forward
 
@@ -125,10 +126,10 @@ def _load_model(model_name, model_path, dtype, device, ch_base, ch_max,
                     "is broadcast over the batch; per-image latents are "
                     "not supported.")
             z = z.reshape(1, z_dim).astype(np.float32)
-        return load_comodgan_forward(model_name, model_path, dtype,
-                                     ch_base=ch_base, ch_max=ch_max, z=z,
-                                     noise_mode=noise_mode, device=device)
-    dt = DTYPES[dtype]
+        chain, res = load_comodgan_forward(
+            model_name, model_path, ch_base=ch_base, ch_max=ch_max, z=z,
+            noise_mode=noise_mode, device=device)
+        return ModelForward(chain, dev, dt), res
     generator = load_weights(model_path, GeneratorConfig(resolution=res))
     chain = KernelGenerator(generator.to(device=dev, dtype=dt).eval())
     return ModelForward(chain, dev, dt), res
@@ -136,8 +137,9 @@ def _load_model(model_name, model_path, dtype, device, ch_base, ch_max,
 
 class ModelForward(torch.nn.Module):
     """`load_model`'s forward: [N,H,W,4] array or tensor -> float32
-    [N,H,W,3] tensor on the chain's device, through the kernel chain. A
-    module, so that `torch.export` takes it with the chain's weights.
+    [N,H,W,3] tensor on the chain's device, through the chain (MI-GAN's
+    kernel chain, or Co-Mod-GAN's generator). A module, so that
+    `torch.export` takes it with the chain's weights.
 
     Spans: `entry.forward`, with `entry.h2d` (the input's copy) and the
     generator's spans inside; the instance's first call, which pays the

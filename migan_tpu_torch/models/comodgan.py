@@ -12,7 +12,13 @@ the reference's state_dict keys.
 The teacher runs as a frozen `eval()` module under `no_grad`
 (`make_teacher_apply`), with random z and random noise drawn from the
 caller's `torch.Generator`, as the reference's loss runs it
-(loss.py:131-137).
+(loss.py:131-137). The demo CLI's `load_model` runs it as
+`CoModGANForward` inside its entry module.
+
+Spans (`utils/tracing.py`): `comodgan.forward`, and inside it
+`comodgan.mapping`, `comodgan.encoder` and `comodgan.syn.b<r>` for each
+synthesis level, 4 included. Counters: `comodgan.forwards` and
+`comodgan.images`, the forwards and images through `CoModGANForward`.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from torch import nn
 
 from ..ops import device_filter, get_unit, upsample2d
+from ..utils import tracing
 from .migan import DenseLayer, minibatch_std, randn
 from .stylegan import (
     Conv2dLayer, DiscrimBlock, MappingConfig, MappingNetwork,
@@ -167,6 +174,7 @@ class Synthesis(nn.Module):
         self.b4 = _Block(fc=DenseLayer(cfg.w0_dim, c4 * 16),
                          conv=SynthesisLayer(c4, c4, 3, wd, resolution=4),
                          torgb=ToRGBLayer(c4, cfg.rgb_n, 1, wd))
+        self.span_names = {r: f"comodgan.syn.b{r}" for r in cfg.block_res}
         res_list = cfg.block_res
         for ri, rj in zip(res_list[:-1], res_list[1:]):
             ci, cj = cfg.ch(ri), cfg.ch(rj)
@@ -189,28 +197,31 @@ def synthesis_apply(s: Synthesis, x_global: torch.Tensor, feats,
     noise = dict(noise_mode=noise_mode, generator=generator)
     w0 = x_global
     p4 = s.b4
-    # fc -> [N, C, 4, 4] in torch order, then NHWC
-    x = p4.fc(x_global, act=act)
-    c4 = feats[4].shape[-1]
-    x = x.reshape(x.shape[0], c4, 4, 4).permute(0, 2, 3, 1)
-    x = x + feats[4]
-    w_idx = 0
-    x = p4.conv(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act, **noise)
-    w_idx += 1
-    img = p4.torgb(x, torch.cat([ws[:, w_idx], w0], dim=1))
+    with tracing.span(s.span_names[4]):
+        # fc -> [N, C, 4, 4] in torch order, then NHWC
+        x = p4.fc(x_global, act=act)
+        c4 = feats[4].shape[-1]
+        x = x.reshape(x.shape[0], c4, 4, 4).permute(0, 2, 3, 1)
+        x = x + feats[4]
+        w_idx = 0
+        x = p4.conv(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act,
+                    **noise)
+        w_idx += 1
+        img = p4.torgb(x, torch.cat([ws[:, w_idx], w0], dim=1))
     inter = {"res_to_rgb": {4: img}, "res_img": {4: img}}
     for res in cfg.block_res[1:]:
         p = getattr(s, f"b{res}")
-        x = p.conv0(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act, up=2,
-                    resample_filter=f, **noise)
-        x = x + feats[res]
-        w_idx += 1
-        x = p.conv1(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act,
-                    **noise)
-        w_idx += 1
-        img = upsample2d(img, f)
-        y = p.torgb(x, torch.cat([ws[:, w_idx], w0], dim=1))
-        img = img + y
+        with tracing.span(s.span_names[res]):
+            x = p.conv0(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act,
+                        up=2, resample_filter=f, **noise)
+            x = x + feats[res]
+            w_idx += 1
+            x = p.conv1(x, torch.cat([ws[:, w_idx], w0], dim=1), act=act,
+                        **noise)
+            w_idx += 1
+            img = upsample2d(img, f)
+            y = p.torgb(x, torch.cat([ws[:, w_idx], w0], dim=1))
+            img = img + y
         inter["res_to_rgb"][res] = y
         inter["res_img"][res] = img
     return (img, inter) if return_intermediate else img
@@ -247,17 +258,20 @@ def generator_apply(g: CoModGANGenerator, x: torch.Tensor, *,
                     return_intermediate: bool = False):
     """x [N, H, W, 4] = concat([mask - 0.5, rgb * mask]). z [N, z_dim] is
     drawn from `generator` when not given (before any noise)."""
-    cfg = g.cfg
-    if z is None:
-        if generator is None:
-            raise ValueError("comodgan: pass z or a torch.Generator")
-        z = randn((x.shape[0], cfg.z_dim), generator, x.device,
-                  torch.float32)
-    ws = mapping_apply(g.mapping, z, truncation_psi=truncation_psi)
-    x_global, feats = encoder_apply(g.encoder, x)
-    return synthesis_apply(g.synthesis, x_global, feats, ws,
-                           noise_mode=noise_mode, generator=generator,
-                           return_intermediate=return_intermediate)
+    with tracing.span("comodgan.forward"):
+        cfg = g.cfg
+        if z is None:
+            if generator is None:
+                raise ValueError("comodgan: pass z or a torch.Generator")
+            z = randn((x.shape[0], cfg.z_dim), generator, x.device,
+                      torch.float32)
+        with tracing.span("comodgan.mapping"):
+            ws = mapping_apply(g.mapping, z, truncation_psi=truncation_psi)
+        with tracing.span("comodgan.encoder"):
+            x_global, feats = encoder_apply(g.encoder, x)
+        return synthesis_apply(g.synthesis, x_global, feats, ws,
+                               noise_mode=noise_mode, generator=generator,
+                               return_intermediate=return_intermediate)
 
 
 def generator_init(cfg: CoModGANConfig, generator: torch.Generator
@@ -294,17 +308,44 @@ def load_comodgan(path: str, cfg: CoModGANConfig) -> CoModGANGenerator:
     return g
 
 
-def load_comodgan_forward(model_name: str, model_path: str,
-                          dtype: str = "float32", ch_base=None, ch_max=None,
-                          z=None, noise_mode: str = "random",
+class CoModGANForward(nn.Module):
+    """The Co-Mod-GAN generator as the demo CLI's `load_model` runs it,
+    inside its entry module: x [N, H, W, 4] on the generator's device ->
+    [N, H, W, 3], under `no_grad`, as the reference demo's comodgan path
+    (scripts/demo.py:95-110). By default z is drawn per call and the noise
+    is random, from a generator seeded 0 that advances with every call. A
+    fixed `z` ([1, z_dim], broadcast over the batch) with noise_mode
+    'const' (the checkpoint's `noise_const` buffers) makes the forward
+    deterministic and comparable with a reference. Counts its forwards and
+    images (`comodgan.forwards`, `comodgan.images`)."""
+
+    def __init__(self, generator: CoModGANGenerator,
+                 z: Optional[torch.Tensor] = None,
+                 noise_mode: str = "random"):
+        super().__init__()
+        self.generator = generator
+        dev = next(generator.parameters()).device
+        self.z = None if z is None else torch.as_tensor(
+            z, dtype=torch.float32, device=dev)
+        self.noise_mode = noise_mode
+        self.rng = torch.Generator(dev).manual_seed(0)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        tracing.add("comodgan.forwards")
+        tracing.add("comodgan.images", n)
+        z = None if self.z is None else self.z.expand(n, self.z.shape[-1])
+        return generator_apply(self.generator, x, z=z, generator=self.rng,
+                               noise_mode=self.noise_mode)
+
+
+def load_comodgan_forward(model_name: str, model_path: str, ch_base=None,
+                          ch_max=None, z=None, noise_mode: str = "random",
                           device: str = "cuda"):
-    """The demo CLI's loader: (forward [N,H,W,4] -> float32 [N,H,W,3] on
-    `device`, resolution), as the reference demo's comodgan path (scripts/
-    demo.py:95-110): z drawn per call and random noise by default, from a
-    generator seeded 0 that advances with every call. A fixed `z`
-    ([1, z_dim], broadcast over the batch) with noise_mode 'const' makes
-    the run deterministic and comparable across frameworks. ch_base and
-    ch_max override the channel banks for reduced-width checkpoints."""
+    """The demo CLI's loader: (`CoModGANForward` on `device`, float32,
+    resolution). ch_base and ch_max override the channel banks for
+    reduced-width checkpoints."""
     m = re.fullmatch(r"comodgan-(\d+)", model_name)
     if m is None:
         raise ValueError(f"Unsupported model name: {model_name}")
@@ -314,21 +355,5 @@ def load_comodgan_forward(model_name: str, model_path: str,
     if ch_max is not None:
         kw["ch_max"] = ch_max
     cfg = CoModGANConfig(resolution=int(m.group(1)), **kw)
-    dev = torch.device(device)
-    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    g = load_comodgan(model_path, cfg).to(dev).eval()
-    gen = torch.Generator(dev).manual_seed(0)
-    z_fixed = None if z is None else torch.as_tensor(
-        z, dtype=torch.float32, device=dev)
-
-    def forward(x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=dev, dtype=dt)
-        zz = None
-        if z_fixed is not None:
-            zz = z_fixed.expand(x.shape[0], z_fixed.shape[-1])
-        with torch.no_grad():
-            y = generator_apply(g, x, z=zz, generator=gen,
-                                noise_mode=noise_mode)
-        return y.float()
-
-    return forward, cfg.resolution
+    g = load_comodgan(model_path, cfg).to(torch.device(device)).eval()
+    return CoModGANForward(g, z, noise_mode), cfg.resolution
