@@ -153,6 +153,14 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      `scripts/training_demo_report.py` (no port: it imports only
      matplotlib and PIL) on phase 9's run: curves.png and both sheets (left out, with a printed line, where matplotlib is not
      installed).
+ 13. the launch path's host cost (`phase_launch_cost`): host us of one
+     kernel call at N = 1 at a migan-256 level-16 shape of each kernel,
+     direct (the wrapper, as an eager forward calls it) and through the
+     op (`*_op`, as a traced program calls it), beside an aten add and
+     a `torch.empty` of the output, each call timed alone and queued
+     in loops; a migan-256 forward's host ms at N = 1, and its
+     launches, each of which must be direct. Alone:
+     `python -c "import chip_smoke; chip_smoke.launch_cost_main()"`.
 
 Where the device time of a forward goes is measured apart from this, by
 `python -m migan_tpu_torch.cli.trace`.
@@ -3108,6 +3116,133 @@ def phase_tools(tmp: str, gpu: str, results: dict, ffhq_run: str) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the launch path's host cost
+# ---------------------------------------------------------------------------
+
+# (kernel, H, W, C, O) of one launch of a migan-256 forward at its 16
+# level (upblock: x_lo's size), N = 1
+LAUNCH_COST_SHAPES = (("sepconv", 16, 16, 512, 512),
+                      ("downblock", 16, 16, 512, 512),
+                      ("upblock", 8, 8, 512, 512))
+LAUNCH_COST_CALLS, LAUNCH_COST_ROUNDS = 100, 15
+
+
+def _host_us(fn) -> dict:
+    """Host us of one fn() call, after a warm-up: "each", the median of
+    LAUNCH_COST_CALLS * 3 calls each timed alone with the device idle (a
+    synchronize after every call), the call's own cost; "queued", the
+    median over LAUNCH_COST_ROUNDS loops of LAUNCH_COST_CALLS calls
+    queued without a synchronize, where the device lags behind and a
+    launch may wait on its queue."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    each = []
+    for _ in range(3 * LAUNCH_COST_CALLS):
+        t0 = time.perf_counter_ns()
+        fn()
+        each.append((time.perf_counter_ns() - t0) / 1e3)
+        torch.cuda.synchronize()
+    rounds = []
+    for _ in range(LAUNCH_COST_ROUNDS):
+        t0 = time.perf_counter_ns()
+        for _ in range(LAUNCH_COST_CALLS):
+            fn()
+        rounds.append((time.perf_counter_ns() - t0)
+                      / LAUNCH_COST_CALLS / 1e3)
+        torch.cuda.synchronize()
+    return {"each_us": statistics.median(each),
+            "queued_us": statistics.median(rounds)}
+
+
+def phase_launch_cost(tmp: str, gpu: str) -> dict:
+    """Phase 13 (see the module's docstring). Returns its numbers, also
+    printed as one JSON line."""
+    from migan_tpu_torch.cli.demo import load_model
+    from migan_tpu_torch.ops import kernels
+    from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
+
+    g = torch.Generator().manual_seed(SEED)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).cuda()
+
+    out = {"gpu": gpu, "kernels": {}}
+    for kernel, h, w, c, o in LAUNCH_COST_SHAPES:
+        sep = (r(3, 3, c), r(c), r(c, o) * c ** -0.5)
+        if kernel == "upblock":
+            hh, wh = 2 * h, 2 * w
+            args = (r(1, h, w, c), r(1, hh, wh, c), r(hh, wh), *sep,
+                    r(hh, wh), r(o, 3), r(3), True, False)
+            wrapper, op = upblock.fused_up_block, upblock.fused_up_block_op
+            shape = (1, hh, wh, o)
+        elif kernel == "downblock":
+            args = (r(1, h, w, c), *sep)
+            wrapper = downblock.fused_down_block
+            op = downblock.fused_down_block_op
+            shape = (1, h // 2, w // 2, o)
+        else:
+            args = (r(1, h, w, c), *sep, r(h, w), True, None, None, None)
+            wrapper, op = sepconv.fused_block, sepconv.fused_block_op
+            shape = (1, h, w, o)
+        kernels.reset_launch_counts()
+        direct = wrapper(*args)
+        via_op = op(*args)
+        torch.cuda.synchronize()
+        pairs = (zip(direct, via_op) if kernel == "upblock"
+                 else [(direct, via_op)])
+        for a, b in pairs:
+            check(torch.equal(a, b), f"phase13 {kernel}: paths differ")
+        check(kernels.launch_counts()[kernel] == 2
+              and kernels.direct_launch_counts()[kernel] == 1,
+              f"phase13 {kernel}: counts {kernels.launch_counts()}")
+        out["kernels"][kernel] = {
+            "direct": _host_us(lambda: wrapper(*args)),
+            "op": _host_us(lambda: op(*args)),
+            "empty": _host_us(lambda: torch.empty(
+                shape, dtype=torch.float32, device="cuda"))}
+    a, b = r(1, 16, 16, 512), r(1, 16, 16, 512)
+    out["aten_add"] = _host_us(lambda: torch.add(a, b))
+
+    path = os.path.join(tmp, "launch_cost_w256.npz")
+    make_weights(256, path)
+    forward, res = load_model("migan-256", path, device="cuda")
+    x = model_input(1, res)
+    for _ in range(5):
+        forward(x)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    forward(x)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(launches == kernels.direct_launch_counts()
+          == {"sepconv": 16, "downblock": 6, "upblock": 6},
+          f"phase13 forward: launches {launches}, direct "
+          f"{kernels.direct_launch_counts()}")
+    host = []
+    for _ in range(40):
+        t0 = time.perf_counter_ns()
+        forward(x)
+        host.append((time.perf_counter_ns() - t0) / 1e6)
+        torch.cuda.synchronize()
+    out["forward_256_n1"] = {"host_ms_median": statistics.median(host),
+                             "host_ms_min": min(host),
+                             "launches": launches, "direct": launches}
+    print(f"phase13 launch cost {json.dumps(out)}", flush=True)
+    return out
+
+
+def launch_cost_main() -> None:
+    """Phase 13 alone, after the kernel build."""
+    from migan_tpu_torch.cli.trace import card
+    from migan_tpu_torch.ops.kernels import _build
+
+    _build.load_library()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_launch_cost(tmp, card())
+
+
 def _numel(state_dict: dict) -> int:
     return sum(v.numel() for v in state_dict.values())
 
@@ -3170,6 +3305,8 @@ def main() -> int:
         took(11)
         phase_tools(tmp, gpu, results, ffhq_run)
         took(12)
+        phase_launch_cost(tmp, gpu)
+        took(13)
 
     print(gpu)
     print(json.dumps({"kernels": [results[k] for k in SOURCES]}))

@@ -1,6 +1,5 @@
 """Hand-written CUDA kernels for the three fused blocks of the main path,
-with their plain PyTorch versions. Each launch adds one to the tracer's
-counter `kernels.<kernel>.launches` (`utils/tracing.py`).
+with their plain PyTorch versions.
 
 Each kernel is a `torch.library` custom op (`migan::fused_block`,
 `migan::fused_down_block`, `migan::fused_up_block`), registered when this
@@ -8,6 +7,29 @@ package is imported, so a program that `torch.export` saves calls them by
 name: import `migan_tpu_torch` before `torch.export.load` of such a
 `.pt2`. Importing builds nothing; the library is compiled at the first
 launch on a CUDA tensor (`_build.load_library`).
+
+A call takes one of two paths. A public wrapper (`fused_block`,
+`fused_down_block`, `fused_up_block`) skips the op's dispatch when
+nothing traces or records the call (`_build.direct`: plain tensors, no
+compile, export, mode or transform, no gradient asked for) and calls the
+implementation itself: the launch on CUDA, the plain version on the CPU.
+Otherwise it calls the op, whose CUDA implementation is the same launch,
+so `torch.export` records the op and a `.pt2` launches through it. While
+a profiler runs, a direct call opens a range named as the op holding the
+op's arguments, so it leaves the op's event. The direct path also keeps
+`torch._dynamo` unimported, which the op's first call imports.
+
+A launch keeps a record per key (the kernel's tensor shapes, flags,
+dtype and device; `_build.Record`): the first launch of a key runs every
+check and finds the plan (`plan.launch_plan`) and the constant arguments;
+a later one checks only what the key leaves open (each tensor's dtype,
+device, layout and alignment), allocates the outputs and makes one ctypes
+call.
+
+Each launch adds one to the tracer's counter `kernels.<kernel>.launches`
+(`utils/tracing.py`), and a direct one also to
+`kernels.<kernel>.direct_launches`: their ratio is the share of launches
+that skipped the op.
 """
 
 from ...utils import tracing
@@ -24,9 +46,18 @@ def launch_counts() -> dict:
     return {k: counts.get(f"kernels.{k}.launches", 0) for k in KERNELS}
 
 
+def direct_launch_counts() -> dict:
+    """{kernel name: launches since the last reset that skipped the op's
+    dispatch}."""
+    counts = tracing.counters()
+    return {k: counts.get(f"kernels.{k}.direct_launches", 0)
+            for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
+    """Zero both kinds of launch counts."""
     tracing.reset_counters("kernels.")
 
 
 __all__ = ["fused_block", "fused_down_block", "fused_up_block",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "direct_launch_counts", "reset_launch_counts"]

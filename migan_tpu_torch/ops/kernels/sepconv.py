@@ -12,11 +12,13 @@ activation follows the up-sample, and the JAX function's `skip` and
 the TPU's 128-lane `pre_g` layout of it). Its launch geometry comes from
 `plan.launch_plan`.
 
-The wrapper calls the `torch.library` custom op `migan::fused_block`, so
-that `torch.export` keeps the kernel in the program it traces: its CUDA
-implementation is the ctypes launch, its CPU implementation
-`sepconv_plain`, the same function in plain PyTorch, and its fake
-implementation gives the output's shape.
+The `torch.library` custom op `migan::fused_block` keeps the kernel in
+the programs `torch.export` traces: its CUDA implementation is the ctypes
+launch (`_launch`, through the launch record of the call's key), its CPU
+implementation `sepconv_plain`, the same function in plain PyTorch, and
+its fake implementation gives the output's shape. The wrapper calls the
+op only while something traces or records the call, and the launch or
+`sepconv_plain` directly otherwise (the package's docstring).
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from ...utils import tracing
 from . import _build, plan
 
 ACT = lrelu_agc(alpha=0.2, gain="sqrt_2", clamp=256)
+OP = "migan::fused_block"
 LAUNCHES = "kernels.sepconv.launches"
+DIRECT_LAUNCHES = "kernels.sepconv.direct_launches"
+_records: dict = {}                  # key -> _build.Record
 
 
 def check_options(name: str, x: torch.Tensor, w_dw: torch.Tensor,
@@ -75,12 +80,8 @@ def sepconv_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     return ACT(y) if final_act else y
 
 
-def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
-            w_pw: torch.Tensor, noise: Optional[torch.Tensor],
-            final_act: bool, skip: Optional[torch.Tensor] = None,
-            w_pre: Optional[torch.Tensor] = None,
-            b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The CUDA kernel's launch (ctypes), one count per launch."""
+def _check(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre) -> None:
+    """Every check of a launch: raise on what the kernel does not take."""
     n, h, w, cin = x.shape
     c = w_dw.shape[-1]
     o = w_pw.shape[-1]
@@ -100,25 +101,72 @@ def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     if skip is not None:
         plan.check_tc_args("fused_block", skip, w_pw,
                            prologue=w_pre is not None)
+
+
+def _key(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre):
+    """What a launch's record depends on: every tensor's shape (None for
+    an absent one), the flag, x's dtype and device."""
+    return (x.shape, w_dw.shape, b_dw.shape, w_pw.shape,
+            None if noise is None else noise.shape, final_act,
+            None if skip is None else skip.shape,
+            None if w_pre is None else w_pre.shape,
+            None if b_pre is None else b_pre.shape, x.dtype, x.device)
+
+
+def _record(key) -> _build.Record:
+    """The launch record of a key whose checks passed."""
+    (n, h, w, cin), (_, _, c), _, (_, o), _, final_act, skip, w_pre, _, \
+        dtype, device = key
     mode = (plan.SEP_PROLOGUE if w_pre is not None else
             plan.SEP_SKIP if skip is not None else plan.SEP_PLAIN)
-    p = plan.launch_plan("sepconv", n, h, w, o, x.dtype, mode=mode,
-                         cin=cin)
-    lib = _build.load_library()
-    out = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
-    err = lib.migan_sepconv(
-        _build.DTYPE_CODES[x.dtype], p.config, p.blocks, p.threads,
-        p.smem_bytes, mode, x.data_ptr(), _build.ptr(skip),
-        _build.ptr(w_pre), _build.ptr(b_pre), w_dw.data_ptr(),
-        b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise), out.data_ptr(),
-        n, h, w, cin, c, o, int(final_act), _build.stream_handle(x.device))
+    p = plan.launch_plan("sepconv", n, h, w, o, dtype, mode=mode, cin=cin)
+    return _build.Record(
+        _build.load_library().migan_sepconv,
+        (_build.DTYPE_CODES[dtype], p.config, p.blocks, p.threads,
+         p.smem_bytes, mode),
+        (n, h, w, cin, c, o, int(final_act)), ((n, h, w, o),), p, dtype,
+        _build.device_index(device))
+
+
+def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
+            w_pw: torch.Tensor, noise: Optional[torch.Tensor],
+            final_act: bool, skip: Optional[torch.Tensor] = None,
+            w_pre: Optional[torch.Tensor] = None,
+            b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The CUDA kernel's launch (ctypes), one count per launch. The first
+    launch of a key runs `_check` and keeps the key's record; a later one
+    checks only what the key leaves open (each tensor's dtype, device and
+    layout, and the 16-byte alignment), and runs `_check` for its error
+    where that fails."""
+    tensors = (x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre)
+    key = _key(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre)
+    rec = _records.get(key)
+    if rec is None:
+        _check(*tensors)
+        rec = _build.remember(_records, key, _record(key))
+    elif not _build.in_place(rec, tensors):
+        _check(*tensors)
+    px, pw = x.data_ptr(), w_pw.data_ptr()
+    ps = 0 if skip is None else skip.data_ptr()
+    if (px | pw | ps) & 15:
+        _check(*tensors)
+    out = x.new_empty(rec.out_shapes[0])
+    err = rec.fn(*rec.head, px, ps, _build.ptr(w_pre), _build.ptr(b_pre),
+                 w_dw.data_ptr(), b_dw.data_ptr(), pw, _build.ptr(noise),
+                 out.data_ptr(), *rec.tail, _build.stream_handle(rec.index))
     _build.raise_on_error("fused_block", err)
     tracing.add(LAUNCHES)
     return out
 
 
-@torch.library.custom_op("migan::fused_block", mutates_args=(),
-                         device_types="cuda")
+def _direct(*args) -> torch.Tensor:
+    """A launch that skipped the op's dispatch, also counted as such."""
+    out = _launch(*args)
+    tracing.add(DIRECT_LAUNCHES)
+    return out
+
+
+@torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
 def fused_block_op(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                    w_pw: torch.Tensor, noise: Optional[torch.Tensor],
                    final_act: bool, skip: Optional[torch.Tensor] = None,
@@ -161,5 +209,7 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     is small.
     """
     _build.check_device("fused_block", x)
-    return fused_block_op(x, w_dw, b_dw, w_pw, noise, final_act, skip,
-                          w_pre, b_pre)
+    args = (x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre)
+    if _build.direct(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre):
+        return _build.run(OP, _direct if x.is_cuda else sepconv_plain, args)
+    return fused_block_op(*args)

@@ -12,12 +12,16 @@ phases that `ops/conv.py::pw_up2_phase` computes with the FIR folded
 into the preceding pointwise conv, and the up-sample is a pure
 depth-to-space interleave (`_xla_up_block_phase` in JAX).
 
-The wrapper calls the `torch.library` custom op `migan::fused_up_block`
-(the ctypes launch on CUDA, `upblock_plain`'s arithmetic on the CPU, a
-fake implementation for `torch.export`). A custom op has a fixed output
-schema, so the op always returns the pair (features, rgb), with an empty
-[0] tensor, allocated and never written, in place of an output not
-asked for; the wrapper returns what its arguments ask for, as before.
+The `torch.library` custom op `migan::fused_up_block` is the ctypes
+launch on CUDA (through the launch record of the call's key),
+`upblock_plain`'s arithmetic on the CPU and a fake implementation for
+`torch.export`. The wrapper calls it while something traces or records
+the call, and the launch or the plain version directly otherwise (the
+package's docstring). A custom op has a fixed output schema, so the op
+always returns the pair (features, rgb), with an empty [0] tensor,
+allocated and never written, in place of an output not asked for; a
+direct launch allocates no such tensor. The wrapper returns what its
+arguments ask for on either path.
 """
 
 from __future__ import annotations
@@ -34,7 +38,10 @@ from . import _build, plan
 from .downblock import FIR_TAPS
 from .sepconv import ACT
 
+OP = "migan::fused_up_block"
 LAUNCHES = "kernels.upblock.launches"
+DIRECT_LAUNCHES = "kernels.upblock.direct_launches"
+_records: dict = {}                  # key -> _build.Record
 
 
 def _outputs(feat, rgb, emit_features):
@@ -86,10 +93,9 @@ def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
                             w_rgb, b_rgb, phase_input), emit_features)
 
 
-def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-            emit_features, phase_input=False):
-    """The CUDA kernel's launch (ctypes), one count per launch. Returns
-    (features or None, rgb or None)."""
+def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+           phase_input) -> None:
+    """Every check of a launch: raise on what the kernel does not take."""
     check_phase("fused_up_block", x_lo, phase_input)
     n, hl, wl, c = x_lo.shape
     if phase_input:
@@ -113,30 +119,87 @@ def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
                            w_rgb=w_rgb, b_rgb=b_rgb)
     plan.check_tc_args("fused_up_block", x_lo, w_pw)
     plan.check_tc_args("fused_up_block", skip, w_pw)
+
+
+def _key(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+         emit_features, phase_input):
+    """What a launch's record depends on: every tensor's shape (None for
+    an absent one), the flags, x_lo's dtype and device."""
+    return (x_lo.shape, skip.shape, noise_up.shape, w_dw.shape, b_dw.shape,
+            w_pw.shape, None if noise2 is None else noise2.shape,
+            None if w_rgb is None else w_rgb.shape,
+            None if b_rgb is None else b_rgb.shape, emit_features,
+            phase_input, x_lo.dtype, x_lo.device)
+
+
+def _record(key) -> _build.Record:
+    """The launch record of a key whose checks passed. Its outputs:
+    features if emit_features, rgb with w_rgb, and with w_rgb over more
+    than one output tile the tiles' float32 rgb partial sums, which a
+    second launch adds in tile order."""
+    (n, hl, wl, c), _, hw, _, _, (_, o), _, w_rgb, _, emit_features, \
+        phase_input, dtype, device = key
+    if phase_input:
+        c //= 4
     mode = plan.UP_PHASE if phase_input else plan.UP_PLAIN
-    p = plan.launch_plan("upblock", n, hl, wl, o, x_lo.dtype, mode=mode)
-    lib = _build.load_library()
-    dev = x_lo.device
-    feat = (torch.empty((n, *hw, o), dtype=x_lo.dtype, device=dev)
-            if emit_features else None)
-    rgb = part = None
-    if w_rgb is not None:
-        rgb = torch.empty((n, *hw, 3), dtype=x_lo.dtype, device=dev)
-        if p.out_tiles > 1:
-            # each output tile's rgb partial sums, added in tile order
-            part = torch.empty((p.out_tiles, n, *hw, 3),
-                               dtype=torch.float32, device=dev)
-    err = lib.migan_upblock(
-        _build.DTYPE_CODES[x_lo.dtype], p.config, p.blocks, p.threads,
-        p.smem_bytes, mode, x_lo.data_ptr(), skip.data_ptr(),
-        noise_up.data_ptr(),
-        w_dw.data_ptr(), b_dw.data_ptr(), w_pw.data_ptr(), _build.ptr(noise2),
-        _build.ptr(w_rgb), _build.ptr(b_rgb), _build.ptr(feat),
-        _build.ptr(rgb), _build.ptr(part), n, hl, wl, c, o,
-        _build.stream_handle(dev))
+    p = plan.launch_plan("upblock", n, hl, wl, o, dtype, mode=mode)
+    feat = (n, *hw, o) if emit_features else None
+    rgb = None if w_rgb is None else (n, *hw, 3)
+    part = (p.out_tiles, n, *hw, 3) if rgb and p.out_tiles > 1 else None
+    return _build.Record(
+        _build.load_library().migan_upblock,
+        (_build.DTYPE_CODES[dtype], p.config, p.blocks, p.threads,
+         p.smem_bytes, mode),
+        (n, hl, wl, c, o), (feat, rgb, part), p, dtype,
+        _build.device_index(device))
+
+
+def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+            emit_features, phase_input=False):
+    """The CUDA kernel's launch (ctypes), one count per launch, through
+    its key's record as `sepconv._launch`. Returns (features or None, rgb
+    or None)."""
+    tensors = (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb)
+    key = _key(*tensors, emit_features, phase_input)
+    rec = _records.get(key)
+    if rec is None:
+        _check(*tensors, phase_input)
+        rec = _build.remember(_records, key, _record(key))
+    elif not _build.in_place(rec, tensors):
+        _check(*tensors, phase_input)
+    px, ps, pw = x_lo.data_ptr(), skip.data_ptr(), w_pw.data_ptr()
+    if (px | ps | pw) & 15:
+        _check(*tensors, phase_input)
+    feat_shape, rgb_shape, part_shape = rec.out_shapes
+    feat = rgb = part = None
+    if feat_shape:
+        feat = x_lo.new_empty(feat_shape)
+    if rgb_shape:
+        rgb = x_lo.new_empty(rgb_shape)
+        if part_shape:
+            part = x_lo.new_empty(part_shape, dtype=torch.float32)
+    err = rec.fn(
+        *rec.head, px, ps, noise_up.data_ptr(), w_dw.data_ptr(),
+        b_dw.data_ptr(), pw, _build.ptr(noise2), _build.ptr(w_rgb),
+        _build.ptr(b_rgb), _build.ptr(feat), _build.ptr(rgb),
+        _build.ptr(part), *rec.tail, _build.stream_handle(rec.index))
     _build.raise_on_error("fused_up_block", err)
     tracing.add(LAUNCHES)
     return feat, rgb
+
+
+def _direct(*args):
+    """A launch that skipped the op's dispatch, also counted as such."""
+    out = _launch(*args)
+    tracing.add(DIRECT_LAUNCHES)
+    return out
+
+
+def _plain_call(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb,
+                b_rgb, emit_features, phase_input=False):
+    """`_plain` on the op's arguments: (features, rgb or None)."""
+    return _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb,
+                  b_rgb, phase_input)
 
 
 def _pair(x_lo, feat, rgb):
@@ -145,8 +208,7 @@ def _pair(x_lo, feat, rgb):
             x_lo.new_empty((0,)) if rgb is None else rgb)
 
 
-@torch.library.custom_op("migan::fused_up_block", mutates_args=(),
-                         device_types="cuda")
+@torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
 def fused_up_block_op(x_lo: torch.Tensor, skip: torch.Tensor,
                       noise_up: torch.Tensor, w_dw: torch.Tensor,
                       b_dw: torch.Tensor, w_pw: torch.Tensor,
@@ -207,7 +269,11 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
     if w_rgb is None and not emit_features:
         raise ValueError("fused_up_block: no output requested")
     _build.check_device("fused_up_block", x_lo)
-    feat, rgb = fused_up_block_op(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
-                                  noise2, w_rgb, b_rgb, emit_features,
-                                  phase_input)
+    args = (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+            emit_features, phase_input)
+    if _build.direct(*args[:9]):
+        feat, rgb = _build.run(
+            OP, _direct if x_lo.is_cuda else _plain_call, args)
+    else:
+        feat, rgb = fused_up_block_op(*args)
     return _outputs(feat, None if w_rgb is None else rgb, emit_features)

@@ -31,12 +31,14 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from migan_tpu_torch.models.migan_inference import GeneratorConfig
 from migan_tpu_torch.models.migan_kernels import kernel_shapes
 from migan_tpu_torch.ops.kernels import (
-    downblock, fused_block, fused_down_block, fused_up_block, launch_counts,
-    plan, sepconv, upblock,
+    direct_launch_counts, downblock, fused_block, fused_down_block,
+    fused_up_block, launch_counts, plan, reset_launch_counts, sepconv,
+    upblock,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
@@ -754,6 +756,226 @@ def test_exported_chain_runs_the_kernels_on_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert launch_counts() == {"sepconv": 12, "downblock": 4, "upblock": 4}
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The two launch paths: direct calls and the op
+# ---------------------------------------------------------------------------
+
+class _ThroughTheOp(TorchFunctionMode):
+    """A mode that changes nothing but, being a mode, sends every wrapper
+    call through its op."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+FUSED = {"sepconv": fused_block, "downblock": fused_down_block,
+         "upblock": fused_up_block}
+
+
+def _paths_bit_equal(kernel, args, **kw):
+    """The wrapper's direct launch and its launch through the op: bit
+    for bit, one launch each, only the first counted as direct."""
+    reset_launch_counts()
+    direct = FUSED[kernel](*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == direct_launch_counts()[kernel] == 1
+    with _ThroughTheOp():
+        via_op = FUSED[kernel](*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == 2
+    assert direct_launch_counts()[kernel] == 1
+    assert len(_outs(direct)) == len(_outs(via_op))
+    for a, b in zip(_outs(direct), _outs(via_op)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MAIN_SHAPES,
+                         ids=lambda s: "{}-{}x{}-{}to{}-{}".format(*s))
+def test_direct_path_equals_op_path_at_main_shapes(dev, shape, dtype):
+    """Every kernel shape of a migan-512 forward at N = 1 (sepconv with
+    its noise, upblock with both outputs), direct and through the op."""
+    kernel, h, w, c, o, final_act = shape
+    rng = np.random.RandomState(h + c + o)
+    if kernel == "upblock":
+        args = _on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype)
+    else:
+        args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
+    if kernel == "sepconv":
+        args += [*_on(dev, _r(rng, h, w, scale=0.1), dtype=dtype),
+                 final_act]
+    _paths_bit_equal(kernel, args)
+
+
+def _option_args(dev, option, dtype):
+    """(kernel, arguments, keywords) of one kernel option."""
+    rng = np.random.RandomState(len(option))
+    if option == "sep_skip_4x4":
+        x, skip = _on(dev, _r(rng, 1, 4, 4, 512), _r(rng, 1, 4, 4, 512),
+                      dtype=dtype)
+        return "sepconv", [x, *_on(dev, *_sep(rng, 512, 512),
+                                   dtype=dtype)], {"skip": skip}
+    if option == "sep_prologue":
+        x = _r(rng, 2, 64, 64, 4)
+        kw = _on_kw(dev, _options(rng, "both", x, 64), dtype)
+        return "sepconv", _on(dev, x, *_sep(rng, 64, 64), dtype=dtype), kw
+    if option == "sep_no_act":
+        return "sepconv", _on(dev, _r(rng, 1, 16, 16, 512),
+                              *_sep(rng, 512, 512), dtype=dtype), \
+            {"final_act": False}
+    if option == "up_phase":
+        return "upblock", _on(dev, *_phase_args(rng, 1, 16, 16, 128, 128),
+                              dtype=dtype), {"phase_input": True}
+    x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb, b_rgb = _on(
+        dev, *_up(rng, 1, 32, 32, 64, 64), dtype=dtype)
+    if option == "up_rgb_only":
+        return "upblock", [x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb,
+                           b_rgb], {"emit_features": False}
+    return "upblock", [x_lo, skip, n1, w_dw, b_dw, w_pw], {}   # features
+
+
+DIRECT_OPTIONS = ["sep_skip_4x4", "sep_prologue", "sep_no_act", "up_phase",
+                  "up_rgb_only", "up_features_only"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("option", DIRECT_OPTIONS)
+def test_direct_path_equals_op_path_with_options(dev, option, dtype):
+    """The kernels' options, direct and through the op."""
+    kernel, args, kw = _option_args(dev, option, dtype)
+    _paths_bit_equal(kernel, args, **kw)
+
+
+def _misaligned_on(dev, shape):
+    """A contiguous float32 tensor of `shape` on the card, 4 bytes off
+    16-byte alignment."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, device=dev)[1:].view(shape)
+
+
+@pytest.mark.parametrize("bad", ["width", "alignment", "device"])
+@pytest.mark.parametrize("kernel", ["sepconv", "downblock", "upblock"])
+def test_direct_and_op_paths_raise_alike_on_card(dev, kernel, bad):
+    """What a kernel does not take (a width that is no multiple of 8, a
+    misaligned input, a weight left on the CPU) raises the same exception
+    type and message on both paths, at a key's first call and at repeated
+    ones, and launches nothing."""
+    rng = np.random.RandomState(3)
+    c = 12 if bad == "width" else 16
+    if kernel == "upblock":
+        args = _on(dev, *_up(rng, 1, 4, 4, c, 16))[:6]
+    else:
+        args = _on(dev, _r(rng, 1, 8, 8, c), *_sep(rng, c, 16))
+    if bad == "alignment":
+        args[0] = _misaligned_on(dev, args[0].shape)
+    if bad == "device":
+        args[3] = args[3].cpu()
+    errors = []
+    reset_launch_counts()
+    for through_op in (False, False, True, True):
+        with pytest.raises(Exception) as info:
+            if through_op:
+                with _ThroughTheOp():
+                    FUSED[kernel](*args)
+            else:
+                FUSED[kernel](*args)
+        errors.append((type(info.value), str(info.value)))
+    assert len(set(errors)) == 1, errors
+    assert sum(launch_counts().values()) == 0
+
+
+def test_direct_launches_per_forward_and_none_through_export(dev, tmp_path):
+    """An eager migan-256 forward at N = 1 launches 16 / 6 / 6, each one
+    direct; `torch.export` launches nothing, and its loaded `.pt2`
+    launches through the ops, none of them direct."""
+    from migan_tpu_torch.cli.demo import load_model
+    from migan_tpu_torch.export import torch_export
+
+    forward, res = load_model("migan-256", _weights(tmp_path, 256),
+                              device="cuda")
+    x = _on(dev, _r(np.random.RandomState(256), 1, res, res, 4))[0]
+    want = {"sepconv": 16, "downblock": 6, "upblock": 6}
+    reset_launch_counts()
+    eager = forward(x)
+    torch.cuda.synchronize()
+    assert launch_counts() == direct_launch_counts() == want
+    reset_launch_counts()
+    torch_export.save(str(tmp_path / "m.pt2"), forward, [x])
+    assert set(direct_launch_counts().values()) == {0}
+    loaded = torch_export.load(str(tmp_path / "m.pt2"))
+    reset_launch_counts()
+    got = loaded(x)
+    torch.cuda.synchronize()
+    assert launch_counts() == want
+    assert set(direct_launch_counts().values()) == {0}
+    assert torch.equal(got, eager)
+
+
+def test_profiled_forward_shows_the_ops_events(dev, tmp_path):
+    """A profiled migan-256 forward leaves 28 `migan::` CPU events, whose
+    names, shapes, scalars and dtypes equal those of the same forward
+    through the ops; neither path leaves a `migan::` device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from migan_tpu_torch.cli.demo import load_model
+
+    forward, res = load_model("migan-256", _weights(tmp_path, 256),
+                              device="cuda")
+    x = _on(dev, _r(np.random.RandomState(7), 1, res, res, 4))[0]
+    forward(x)
+    seen = {}
+    for path in ("direct", "op"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            if path == "op":
+                with _ThroughTheOp():
+                    forward(x)
+            else:
+                forward(x)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.name.startswith("migan::")]
+        seen[path] = (
+            [(e.name, e.input_shapes, e.concrete_inputs,
+              getattr(e, "input_dtypes", None)) for e in events
+             if e.device_type == DeviceType.CPU],
+            sorted(e.name for e in events
+                   if e.device_type != DeviceType.CPU))
+    assert len(seen["direct"][0]) == 28
+    assert seen["direct"] == seen["op"]
+    assert not seen["direct"][1]
+
+
+NO_DYNAMO_ON_CARD = r"""
+import sys
+import torch
+from migan_tpu_torch.cli.demo import load_model
+forward, res = load_model("migan-256", sys.argv[1], device="cuda")
+y = forward(torch.zeros(1, res, res, 4, device="cuda"))
+torch.cuda.synchronize()
+assert y.shape == (1, res, res, 3)
+print("dynamo" if "torch._dynamo" in sys.modules else "clean")
+"""
+
+
+def test_first_forward_on_card_leaves_dynamo_unimported(dev, tmp_path):
+    """A fresh interpreter loads migan-256 on the card and runs a forward
+    without importing `torch._dynamo`."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", NO_DYNAMO_ON_CARD,
+                        _weights(tmp_path, 256)], cwd=repo,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip().splitlines()[-1] == "clean", r.stdout
 
 
 # ---------------------------------------------------------------------------

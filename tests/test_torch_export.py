@@ -170,8 +170,9 @@ def test_kernel_ops_pass_opcheck(case):
 
 
 def test_wrappers_call_the_custom_ops():
-    """The public wrappers go through the ops, and return what their
-    arguments ask for from upblock's fixed (features, rgb) pair."""
+    """The public wrappers return what their arguments ask for from
+    upblock's fixed (features, rgb) pair, and go through the ops where
+    `torch.export` traces them."""
     name, op, args = _opcheck_cases()[3]
     x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb, b_rgb, _ = args
     feat, rgb = upblock.fused_up_block(x_lo, skip, n1, w_dw, b_dw, w_pw, n2,
