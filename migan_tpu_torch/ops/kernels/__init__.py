@@ -8,23 +8,28 @@ name: import `migan_tpu_torch` before `torch.export.load` of such a
 `.pt2`. Importing builds nothing; the library is compiled at the first
 launch on a CUDA tensor (`_build.load_library`).
 
-A call takes one of two paths. A public wrapper (`fused_block`,
-`fused_down_block`, `fused_up_block`) skips the op's dispatch when
-nothing traces or records the call (`_build.direct`: plain tensors, no
-compile, export, mode or transform, no gradient asked for) and calls the
-implementation itself: the launch on CUDA, the plain version on the CPU.
-Otherwise it calls the op, whose CUDA implementation is the same launch,
-so `torch.export` records the op and a `.pt2` launches through it. While
-a profiler runs, a direct call opens a range named as the op holding the
-op's arguments, so it leaves the op's event. The direct path also keeps
-`torch._dynamo` unimported, which the op's first call imports.
+A call takes one of two paths (`launch.call`). A public wrapper
+(`fused_block`, `fused_down_block`, `fused_up_block`) skips the op's
+dispatch when nothing traces or records the call (`launch.direct`: plain
+tensors, no compile, export, mode or transform, no gradient asked for)
+and calls the implementation itself: the launch on CUDA, the plain
+version on the CPU. Otherwise it calls the op, whose CUDA implementation
+is the same launch, so `torch.export` records the op and a `.pt2`
+launches through it. While a profiler runs, a direct call opens a range
+named as the op holding the op's arguments, so it leaves the op's event.
+The direct path also keeps `torch._dynamo` unimported, which the op's
+first call imports.
 
-A launch keeps a record per key (the kernel's tensor shapes, flags,
-dtype and device; `_build.Record`): the first launch of a key runs every
-check and finds the plan (`plan.launch_plan`) and the constant arguments;
-a later one checks only what the key leaves open (each tensor's dtype,
-device, layout and alignment), allocates the outputs and makes one ctypes
-call.
+One launcher serves the three kernels (`launch.launch`); each kernel
+module states what is its own as data (`launch.Kernel`: its check, the
+layout of its key's record, its entry point's pointer order and the
+arguments it needs aligned). A launch keeps a record per key (each of
+the op's arguments as its shape, None or the flag, then dtype and
+device; `launch.key`, `launch.Record`): the first launch of a key runs
+every check and finds the plan (`plan.launch_plan`) and the constant
+arguments; a later one checks only what the key leaves open (each
+tensor's dtype, device, layout and alignment), allocates the outputs and
+makes one ctypes call.
 
 Each launch adds one to the tracer's counter `kernels.<kernel>.launches`
 (`utils/tracing.py`), and a direct one also to

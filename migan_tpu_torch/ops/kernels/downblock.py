@@ -4,12 +4,12 @@
 Port of `migan_tpu/ops/pallas/downblock.py::fused_down_block` as one CUDA
 kernel (`csrc/downblock.cu`: y once per hi-res pixel, separable FIR,
 pointwise product on tensor cores) on contiguous NHWC tensors. Its launch
-geometry comes from `plan.launch_plan`, kept in the launch record of the
-call's key. The `torch.library` custom op `migan::fused_down_block` is
-the ctypes launch on CUDA, `downblock_plain` (the same function in plain
-PyTorch) on the CPU, and a fake implementation for `torch.export`; the
-wrapper calls it while something traces or records the call, and the
-launch or `downblock_plain` directly otherwise (the package's docstring).
+geometry comes from `plan.launch_plan`. The `torch.library` custom op
+`migan::fused_down_block` is the ctypes launch on CUDA (`launch.launch`
+of `KERNEL`), `downblock_plain` (the same function in plain PyTorch) on
+the CPU, and a fake implementation for `torch.export`; the wrapper calls
+it while something traces or records the call, and the launch or
+`downblock_plain` directly otherwise (`launch.call`).
 """
 
 from __future__ import annotations
@@ -19,14 +19,10 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import downsample2d
-from ...utils import tracing
-from . import _build, plan
+from . import launch, plan
 from .sepconv import ACT
 
 OP = "migan::fused_down_block"
-LAUNCHES = "kernels.downblock.launches"
-DIRECT_LAUNCHES = "kernels.downblock.direct_launches"
-_records: dict = {}                  # key -> _build.Record
 FIR_TAPS = [1, 3, 3, 1]
 
 
@@ -49,64 +45,29 @@ def _check(x, w_dw, b_dw, w_pw) -> None:
             f"fused_down_block: shapes x {tuple(x.shape)} w_dw "
             f"{tuple(w_dw.shape)} b_dw {tuple(b_dw.shape)} w_pw "
             f"{tuple(w_pw.shape)} (H and W must be even)")
-    _build.check_cuda_args("fused_down_block", x.dtype, x.device, x=x,
+    launch.check_cuda_args("fused_down_block", x.dtype, x.device, x=x,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw)
     plan.check_tc_args("fused_down_block", x, w_pw)
 
 
-def _key(x, w_dw, b_dw, w_pw):
-    """What a launch's record depends on: the shapes, x's dtype and
-    device."""
-    return (x.shape, w_dw.shape, b_dw.shape, w_pw.shape, x.dtype, x.device)
-
-
-def _record(key) -> _build.Record:
-    """The launch record of a key whose checks passed."""
-    (n, hh, wh, c), _, _, (_, o), dtype, device = key
+def _layout(key):
+    """(plan, mode, sizes, outputs) of a key whose checks passed."""
+    (n, hh, wh, c), _, _, (_, o), dtype, _ = key
     p = plan.launch_plan("downblock", n, hh, wh, o, dtype)
-    return _build.Record(
-        _build.load_library().migan_downblock,
-        (_build.DTYPE_CODES[dtype], p.config, p.blocks, p.threads,
-         p.smem_bytes),
-        (n, hh, wh, c, o), ((n, hh // 2, wh // 2, o),), p, dtype,
-        _build.device_index(device))
+    return p, (), (n, hh, wh, c, o), (((n, hh // 2, wh // 2, o), None),)
 
 
-def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
-            w_pw: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel's launch (ctypes), one count per launch, through
-    its key's record as `sepconv._launch`."""
-    tensors = (x, w_dw, b_dw, w_pw)
-    key = _key(x, w_dw, b_dw, w_pw)
-    rec = _records.get(key)
-    if rec is None:
-        _check(*tensors)
-        rec = _build.remember(_records, key, _record(key))
-    elif not _build.in_place(rec, tensors):
-        _check(*tensors)
-    px, pw = x.data_ptr(), w_pw.data_ptr()
-    if (px | pw) & 15:
-        _check(*tensors)
-    out = x.new_empty(rec.out_shapes[0])
-    err = rec.fn(*rec.head, px, w_dw.data_ptr(), b_dw.data_ptr(), pw,
-                 out.data_ptr(), *rec.tail, _build.stream_handle(rec.index))
-    _build.raise_on_error("fused_down_block", err)
-    tracing.add(LAUNCHES)
-    return out
-
-
-def _direct(*args) -> torch.Tensor:
-    """A launch that skipped the op's dispatch, also counted as such."""
-    out = _launch(*args)
-    tracing.add(DIRECT_LAUNCHES)
-    return out
+# the entry point's pointers: x, w_dw, b_dw, w_pw, then the output
+KERNEL = launch.Kernel("downblock", "fused_down_block", _check, _layout,
+                       tensors=(0, 1, 2, 3), ins=(0, 1, 2, 3),
+                       aligned=(0, 3), returns=0)
 
 
 @torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
 def fused_down_block_op(x: torch.Tensor, w_dw: torch.Tensor,
                         b_dw: torch.Tensor, w_pw: torch.Tensor
                         ) -> torch.Tensor:
-    return _launch(x, w_dw, b_dw, w_pw)
+    return launch.launch(KERNEL, (x, w_dw, b_dw, w_pw))
 
 
 fused_down_block_op.register_kernel("cpu")(downblock_plain)
@@ -126,9 +87,5 @@ def fused_down_block(x: torch.Tensor, w_dw: torch.Tensor,
     b_dw: [C]; w_pw: [C, O]; all of one dtype; C and O multiples of 8 on CUDA.
     Returns [N, Hh/2, Wh/2, O]. CPU tensors take the plain version.
     """
-    _build.check_device("fused_down_block", x)
-    args = (x, w_dw, b_dw, w_pw)
-    if _build.direct(*args):
-        return _build.run(OP, _direct if x.is_cuda else downblock_plain,
-                          args)
-    return fused_down_block_op(*args)
+    return launch.call(KERNEL, fused_down_block_op, downblock_plain,
+                       (x, w_dw, b_dw, w_pw))

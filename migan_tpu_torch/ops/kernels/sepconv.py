@@ -14,11 +14,11 @@ the TPU's 128-lane `pre_g` layout of it). Its launch geometry comes from
 
 The `torch.library` custom op `migan::fused_block` keeps the kernel in
 the programs `torch.export` traces: its CUDA implementation is the ctypes
-launch (`_launch`, through the launch record of the call's key), its CPU
+launch (`launch.launch` of `KERNEL`, this kernel's launch data), its CPU
 implementation `sepconv_plain`, the same function in plain PyTorch, and
 its fake implementation gives the output's shape. The wrapper calls the
 op only while something traces or records the call, and the launch or
-`sepconv_plain` directly otherwise (the package's docstring).
+`sepconv_plain` directly otherwise (`launch.call`).
 """
 
 from __future__ import annotations
@@ -29,14 +29,10 @@ import torch
 
 from ..bias_act import lrelu_agc
 from ..conv import conv2d
-from ...utils import tracing
-from . import _build, plan
+from . import launch, plan
 
 ACT = lrelu_agc(alpha=0.2, gain="sqrt_2", clamp=256)
 OP = "migan::fused_block"
-LAUNCHES = "kernels.sepconv.launches"
-DIRECT_LAUNCHES = "kernels.sepconv.direct_launches"
-_records: dict = {}                  # key -> _build.Record
 
 
 def check_options(name: str, x: torch.Tensor, w_dw: torch.Tensor,
@@ -80,7 +76,8 @@ def sepconv_plain(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     return ACT(y) if final_act else y
 
 
-def _check(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre) -> None:
+def _check(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre,
+           b_pre) -> None:
     """Every check of a launch: raise on what the kernel does not take."""
     n, h, w, cin = x.shape
     c = w_dw.shape[-1]
@@ -94,7 +91,7 @@ def _check(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre) -> None:
             f"{tuple(w_dw.shape)} b_dw {tuple(b_dw.shape)} w_pw "
             f"{tuple(w_pw.shape)} noise "
             f"{None if noise is None else tuple(noise.shape)}")
-    _build.check_cuda_args("fused_block", x.dtype, x.device, x=x,
+    launch.check_cuda_args("fused_block", x.dtype, x.device, x=x,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise=noise,
                            skip=skip, w_pre=w_pre, b_pre=b_pre)
     plan.check_tc_args("fused_block", x, w_pw, prologue=w_pre is not None)
@@ -103,67 +100,23 @@ def _check(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre) -> None:
                            prologue=w_pre is not None)
 
 
-def _key(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre):
-    """What a launch's record depends on: every tensor's shape (None for
-    an absent one), the flag, x's dtype and device."""
-    return (x.shape, w_dw.shape, b_dw.shape, w_pw.shape,
-            None if noise is None else noise.shape, final_act,
-            None if skip is None else skip.shape,
-            None if w_pre is None else w_pre.shape,
-            None if b_pre is None else b_pre.shape, x.dtype, x.device)
-
-
-def _record(key) -> _build.Record:
-    """The launch record of a key whose checks passed."""
+def _layout(key):
+    """(plan, mode, sizes, outputs) of a key whose checks passed."""
     (n, h, w, cin), (_, _, c), _, (_, o), _, final_act, skip, w_pre, _, \
-        dtype, device = key
+        dtype, _ = key
     mode = (plan.SEP_PROLOGUE if w_pre is not None else
             plan.SEP_SKIP if skip is not None else plan.SEP_PLAIN)
     p = plan.launch_plan("sepconv", n, h, w, o, dtype, mode=mode, cin=cin)
-    return _build.Record(
-        _build.load_library().migan_sepconv,
-        (_build.DTYPE_CODES[dtype], p.config, p.blocks, p.threads,
-         p.smem_bytes, mode),
-        (n, h, w, cin, c, o, int(final_act)), ((n, h, w, o),), p, dtype,
-        _build.device_index(device))
+    return p, (mode,), (n, h, w, cin, c, o, int(final_act)), \
+        (((n, h, w, o), None),)
 
 
-def _launch(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
-            w_pw: torch.Tensor, noise: Optional[torch.Tensor],
-            final_act: bool, skip: Optional[torch.Tensor] = None,
-            w_pre: Optional[torch.Tensor] = None,
-            b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The CUDA kernel's launch (ctypes), one count per launch. The first
-    launch of a key runs `_check` and keeps the key's record; a later one
-    checks only what the key leaves open (each tensor's dtype, device and
-    layout, and the 16-byte alignment), and runs `_check` for its error
-    where that fails."""
-    tensors = (x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre)
-    key = _key(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre)
-    rec = _records.get(key)
-    if rec is None:
-        _check(*tensors)
-        rec = _build.remember(_records, key, _record(key))
-    elif not _build.in_place(rec, tensors):
-        _check(*tensors)
-    px, pw = x.data_ptr(), w_pw.data_ptr()
-    ps = 0 if skip is None else skip.data_ptr()
-    if (px | pw | ps) & 15:
-        _check(*tensors)
-    out = x.new_empty(rec.out_shapes[0])
-    err = rec.fn(*rec.head, px, ps, _build.ptr(w_pre), _build.ptr(b_pre),
-                 w_dw.data_ptr(), b_dw.data_ptr(), pw, _build.ptr(noise),
-                 out.data_ptr(), *rec.tail, _build.stream_handle(rec.index))
-    _build.raise_on_error("fused_block", err)
-    tracing.add(LAUNCHES)
-    return out
-
-
-def _direct(*args) -> torch.Tensor:
-    """A launch that skipped the op's dispatch, also counted as such."""
-    out = _launch(*args)
-    tracing.add(DIRECT_LAUNCHES)
-    return out
+# the entry point's pointers: x, skip, w_pre, b_pre, w_dw, b_dw, w_pw,
+# noise, then the output
+KERNEL = launch.Kernel("sepconv", "fused_block", _check, _layout,
+                       tensors=(0, 1, 2, 3, 4, 6, 7, 8),
+                       ins=(0, 6, 7, 8, 1, 2, 3, 4), aligned=(0, 3, 6),
+                       returns=0)
 
 
 @torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
@@ -172,8 +125,8 @@ def fused_block_op(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
                    final_act: bool, skip: Optional[torch.Tensor] = None,
                    w_pre: Optional[torch.Tensor] = None,
                    b_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return _launch(x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre,
-                   b_pre)
+    return launch.launch(KERNEL, (x, w_dw, b_dw, w_pw, noise, final_act,
+                                  skip, w_pre, b_pre))
 
 
 fused_block_op.register_kernel("cpu")(sepconv_plain)
@@ -208,8 +161,6 @@ def fused_block(x: torch.Tensor, w_dw: torch.Tensor, b_dw: torch.Tensor,
     80GB HBM3, 700 W; `chip_smoke.py` phase 11). Fuse it only where Cin
     is small.
     """
-    _build.check_device("fused_block", x)
-    args = (x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre, b_pre)
-    if _build.direct(x, w_dw, b_dw, w_pw, noise, skip, w_pre, b_pre):
-        return _build.run(OP, _direct if x.is_cuda else sepconv_plain, args)
-    return fused_block_op(*args)
+    return launch.call(KERNEL, fused_block_op, sepconv_plain,
+                       (x, w_dw, b_dw, w_pw, noise, final_act, skip, w_pre,
+                        b_pre))

@@ -13,15 +13,14 @@ into the preceding pointwise conv, and the up-sample is a pure
 depth-to-space interleave (`_xla_up_block_phase` in JAX).
 
 The `torch.library` custom op `migan::fused_up_block` is the ctypes
-launch on CUDA (through the launch record of the call's key),
-`upblock_plain`'s arithmetic on the CPU and a fake implementation for
-`torch.export`. The wrapper calls it while something traces or records
-the call, and the launch or the plain version directly otherwise (the
-package's docstring). A custom op has a fixed output schema, so the op
-always returns the pair (features, rgb), with an empty [0] tensor,
-allocated and never written, in place of an output not asked for; a
-direct launch allocates no such tensor. The wrapper returns what its
-arguments ask for on either path.
+launch on CUDA (`launch.launch` of `KERNEL`), `upblock_plain`'s
+arithmetic on the CPU and a fake implementation for `torch.export`. The
+wrapper calls it while something traces or records the call, and the
+launch or the plain version directly otherwise (`launch.call`). A
+custom op has a fixed output schema, so the op always returns the pair
+(features, rgb), with an empty [0] tensor, allocated and never written,
+in place of an output not asked for; a direct launch allocates no such
+tensor. The wrapper returns what its arguments ask for on either path.
 """
 
 from __future__ import annotations
@@ -33,15 +32,11 @@ import torch
 from ..conv import conv2d
 from ..filters import setup_filter
 from ..upfirdn2d import upsample2d
-from ...utils import tracing
-from . import _build, plan
+from . import launch, plan
 from .downblock import FIR_TAPS
 from .sepconv import ACT
 
 OP = "migan::fused_up_block"
-LAUNCHES = "kernels.upblock.launches"
-DIRECT_LAUNCHES = "kernels.upblock.direct_launches"
-_records: dict = {}                  # key -> _build.Record
 
 
 def _outputs(feat, rgb, emit_features):
@@ -70,8 +65,9 @@ def _hires(x_lo, phase_input):
 
 
 def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-           phase_input=False):
-    """(features, rgb or None) in plain PyTorch."""
+           emit_features=True, phase_input=False):
+    """(features, rgb or None) in plain PyTorch, on the op's arguments:
+    emit_features is the caller's to apply."""
     check_phase("upblock_plain", x_lo, phase_input)
     t = _hires(x_lo, phase_input)
     t = ACT(t + noise_up[None, :, :, None]) + skip
@@ -90,11 +86,12 @@ def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
                   phase_input=False):
     """The same outputs as :func:`fused_up_block`, in plain PyTorch."""
     return _outputs(*_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                            w_rgb, b_rgb, phase_input), emit_features)
+                            w_rgb, b_rgb, phase_input=phase_input),
+                    emit_features)
 
 
 def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-           phase_input) -> None:
+           emit_features, phase_input) -> None:
     """Every check of a launch: raise on what the kernel does not take."""
     check_phase("fused_up_block", x_lo, phase_input)
     n, hl, wl, c = x_lo.shape
@@ -113,7 +110,7 @@ def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
             f"{tuple(skip.shape)} noise_up {tuple(noise_up.shape)} w_dw "
             f"{tuple(w_dw.shape)} b_dw {tuple(b_dw.shape)} w_pw "
             f"{tuple(w_pw.shape)}")
-    _build.check_cuda_args("fused_up_block", x_lo.dtype, x_lo.device,
+    launch.check_cuda_args("fused_up_block", x_lo.dtype, x_lo.device,
                            x_lo=x_lo, skip=skip, noise_up=noise_up,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise2=noise2,
                            w_rgb=w_rgb, b_rgb=b_rgb)
@@ -121,85 +118,30 @@ def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
     plan.check_tc_args("fused_up_block", skip, w_pw)
 
 
-def _key(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-         emit_features, phase_input):
-    """What a launch's record depends on: every tensor's shape (None for
-    an absent one), the flags, x_lo's dtype and device."""
-    return (x_lo.shape, skip.shape, noise_up.shape, w_dw.shape, b_dw.shape,
-            w_pw.shape, None if noise2 is None else noise2.shape,
-            None if w_rgb is None else w_rgb.shape,
-            None if b_rgb is None else b_rgb.shape, emit_features,
-            phase_input, x_lo.dtype, x_lo.device)
-
-
-def _record(key) -> _build.Record:
-    """The launch record of a key whose checks passed. Its outputs:
-    features if emit_features, rgb with w_rgb, and with w_rgb over more
-    than one output tile the tiles' float32 rgb partial sums, which a
-    second launch adds in tile order."""
+def _layout(key):
+    """(plan, mode, sizes, outputs) of a key whose checks passed. The
+    outputs: features if emit_features, rgb with w_rgb, and with w_rgb
+    over more than one output tile the tiles' float32 rgb partial sums,
+    which a second launch adds in tile order."""
     (n, hl, wl, c), _, hw, _, _, (_, o), _, w_rgb, _, emit_features, \
-        phase_input, dtype, device = key
+        phase_input, dtype, _ = key
     if phase_input:
         c //= 4
     mode = plan.UP_PHASE if phase_input else plan.UP_PLAIN
     p = plan.launch_plan("upblock", n, hl, wl, o, dtype, mode=mode)
-    feat = (n, *hw, o) if emit_features else None
-    rgb = None if w_rgb is None else (n, *hw, 3)
-    part = (p.out_tiles, n, *hw, 3) if rgb and p.out_tiles > 1 else None
-    return _build.Record(
-        _build.load_library().migan_upblock,
-        (_build.DTYPE_CODES[dtype], p.config, p.blocks, p.threads,
-         p.smem_bytes, mode),
-        (n, hl, wl, c, o), (feat, rgb, part), p, dtype,
-        _build.device_index(device))
+    feat = ((n, *hw, o), None) if emit_features else None
+    rgb = None if w_rgb is None else ((n, *hw, 3), None)
+    part = ((p.out_tiles, n, *hw, 3), torch.float32) \
+        if rgb and p.out_tiles > 1 else None
+    return p, (mode,), (n, hl, wl, c, o), (feat, rgb, part)
 
 
-def _launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-            emit_features, phase_input=False):
-    """The CUDA kernel's launch (ctypes), one count per launch, through
-    its key's record as `sepconv._launch`. Returns (features or None, rgb
-    or None)."""
-    tensors = (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb)
-    key = _key(*tensors, emit_features, phase_input)
-    rec = _records.get(key)
-    if rec is None:
-        _check(*tensors, phase_input)
-        rec = _build.remember(_records, key, _record(key))
-    elif not _build.in_place(rec, tensors):
-        _check(*tensors, phase_input)
-    px, ps, pw = x_lo.data_ptr(), skip.data_ptr(), w_pw.data_ptr()
-    if (px | ps | pw) & 15:
-        _check(*tensors, phase_input)
-    feat_shape, rgb_shape, part_shape = rec.out_shapes
-    feat = rgb = part = None
-    if feat_shape:
-        feat = x_lo.new_empty(feat_shape)
-    if rgb_shape:
-        rgb = x_lo.new_empty(rgb_shape)
-        if part_shape:
-            part = x_lo.new_empty(part_shape, dtype=torch.float32)
-    err = rec.fn(
-        *rec.head, px, ps, noise_up.data_ptr(), w_dw.data_ptr(),
-        b_dw.data_ptr(), pw, _build.ptr(noise2), _build.ptr(w_rgb),
-        _build.ptr(b_rgb), _build.ptr(feat), _build.ptr(rgb),
-        _build.ptr(part), *rec.tail, _build.stream_handle(rec.index))
-    _build.raise_on_error("fused_up_block", err)
-    tracing.add(LAUNCHES)
-    return feat, rgb
-
-
-def _direct(*args):
-    """A launch that skipped the op's dispatch, also counted as such."""
-    out = _launch(*args)
-    tracing.add(DIRECT_LAUNCHES)
-    return out
-
-
-def _plain_call(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb,
-                b_rgb, emit_features, phase_input=False):
-    """`_plain` on the op's arguments: (features, rgb or None)."""
-    return _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb,
-                  b_rgb, phase_input)
+# the entry point's pointers: the nine tensor arguments in order, then
+# features, rgb and the partial sums; a launch returns (features or None,
+# rgb or None)
+KERNEL = launch.Kernel("upblock", "fused_up_block", _check, _layout,
+                       tensors=tuple(range(9)), ins=tuple(range(9)),
+                       aligned=(0, 1, 5), returns=slice(2))
 
 
 def _pair(x_lo, feat, rgb):
@@ -217,16 +159,16 @@ def fused_up_block_op(x_lo: torch.Tensor, skip: torch.Tensor,
                       b_rgb: Optional[torch.Tensor], emit_features: bool,
                       phase_input: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _pair(x_lo, *_launch(x_lo, skip, noise_up, w_dw, b_dw, w_pw,
-                                noise2, w_rgb, b_rgb, emit_features,
-                                phase_input))
+    return _pair(x_lo, *launch.launch(KERNEL, (
+        x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+        emit_features, phase_input)))
 
 
 @fused_up_block_op.register_kernel("cpu")
 def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
       emit_features, phase_input=False):
     feat, rgb = _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                       w_rgb, b_rgb, phase_input)
+                       w_rgb, b_rgb, phase_input=phase_input)
     return _pair(x_lo, feat if emit_features else None, rgb)
 
 
@@ -268,12 +210,7 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
         raise ValueError("fused_up_block: pass both w_rgb and b_rgb")
     if w_rgb is None and not emit_features:
         raise ValueError("fused_up_block: no output requested")
-    _build.check_device("fused_up_block", x_lo)
-    args = (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-            emit_features, phase_input)
-    if _build.direct(*args[:9]):
-        feat, rgb = _build.run(
-            OP, _direct if x_lo.is_cuda else _plain_call, args)
-    else:
-        feat, rgb = fused_up_block_op(*args)
+    feat, rgb = launch.call(KERNEL, fused_up_block_op, _plain, (
+        x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
+        emit_features, phase_input))
     return _outputs(feat, None if w_rgb is None else rgb, emit_features)

@@ -46,7 +46,7 @@ RING = 1 << 16
 # A profiler range of a name. `torch.profiler.record_function` costs ~10x
 # as much a range inside a forward on an H100 host: it calls two ops
 # through the dispatcher.
-_RANGE = torch._C._profiler._RecordFunctionFast
+RANGE = torch._C._profiler._RecordFunctionFast
 
 
 class Span(NamedTuple):
@@ -123,7 +123,7 @@ class _Open:
                 _setup_open += 1
         self.range = None
         if _profiler._is_profiler_enabled:
-            self.range = _RANGE(self.name)
+            self.range = RANGE(self.name)
             self.range.__enter__()
         self.cpu = time.thread_time_ns() if self.clock else None
         self.start = time.perf_counter_ns()

@@ -37,8 +37,8 @@ from migan_tpu_torch.models.migan_inference import GeneratorConfig
 from migan_tpu_torch.models.migan_kernels import kernel_shapes
 from migan_tpu_torch.ops.kernels import (
     direct_launch_counts, downblock, fused_block, fused_down_block,
-    fused_up_block, launch_counts, plan, reset_launch_counts, sepconv,
-    upblock,
+    fused_up_block, launch, launch_counts, plan, reset_launch_counts,
+    sepconv, upblock,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
@@ -714,12 +714,13 @@ def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
     kernel, h, w, c, o = shape
     rng = np.random.RandomState(h + c)
     if kernel == "upblock":
-        args = [*_on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype), True]
+        args = [*_on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype), True,
+                False]
         op = torch.ops.migan.fused_up_block
     else:
         args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
         if kernel == "sepconv":
-            args += [None, True]
+            args += [None, True, None, None, None]
         op = {"sepconv": torch.ops.migan.fused_block,
               "downblock": torch.ops.migan.fused_down_block}[kernel]
     mod = {"sepconv": sepconv, "downblock": downblock,
@@ -728,7 +729,7 @@ def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
     via_op = op(*args)
     torch.cuda.synchronize()
     assert _launches(mod) == before + 1
-    direct = mod._launch(*args)
+    direct = launch.launch(mod.KERNEL, tuple(args))
     if kernel != "upblock":
         via_op, direct = (via_op,), (direct,)
     for a, b in zip(via_op, direct):

@@ -208,7 +208,7 @@ def test_launch_counter_loses_no_concurrent_add():
 
     def work():
         for _ in range(n_adds):
-            tracing.add(sepconv.LAUNCHES)
+            tracing.add(sepconv.KERNEL.launches)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

@@ -24,8 +24,8 @@ from migan_tpu_torch.models.migan_inference import (
     GeneratorConfig, generator_init)
 from migan_tpu_torch.models.migan_kernels import KernelGenerator, kernel_shapes
 from migan_tpu_torch.ops.kernels import (
-    _build, downblock, launch_counts, plan, reset_launch_counts, sepconv,
-    upblock,
+    _build, downblock, launch, launch_counts, plan, reset_launch_counts,
+    sepconv, upblock,
 )
 from migan_tpu_torch.utils import tracing
 
@@ -261,9 +261,9 @@ def stub(monkeypatch):
     """Launches on CPU tensors into `_StubLibrary`, from empty records."""
     lib = _StubLibrary()
     monkeypatch.setattr(_build, "load_library", lambda: lib)
-    monkeypatch.setattr(_build, "stream_handle", lambda index: STREAM)
+    monkeypatch.setattr(launch, "stream_handle", lambda index: STREAM)
     for mod in MODS.values():
-        monkeypatch.setattr(mod, "_records", {})
+        monkeypatch.setattr(mod.KERNEL, "records", {})
     return lib
 
 
@@ -315,14 +315,14 @@ def test_launcher_passes_what_an_unrecorded_launch_would(case, stub):
     both pass the entry point the plan, pointers and sizes computed
     afresh, allocate outputs of the right shapes, and count a launch."""
     kernel, args = _case(case)
-    mod = MODS[kernel]
+    k = MODS[kernel].KERNEL
     before = launch_counts()[kernel]
     for i in range(2):
-        out = mod._launch(*args)
+        out = launch.launch(k, args)
         name, got = stub.calls[-1]
         assert [name, *(0 if a is None else a for a in got)] == \
             _expected(kernel, args, out)
-        assert len(mod._records) == 1
+        assert len(k.records) == 1
     assert launch_counts()[kernel] == before + 2
     if kernel == "upblock":
         feat, rgb = out
@@ -378,14 +378,14 @@ def test_launcher_raises_alike_with_and_without_a_record(kernel, broken,
     key a good call already recorded, and launches nothing."""
     _, args = _case({"sepconv": "sep_skip", "downblock": "down",
                      "upblock": "up_feat_rgb"}[kernel])
-    mod = MODS[kernel]
+    k = MODS[kernel].KERNEL
     where, change, words = BREAKS[broken]
     i = where[kernel]
     bad = (*args[:i], change(args[i]), *args[i + 1:])
-    first = [_error(lambda: mod._launch(*bad)) for _ in range(2)]
-    assert not mod._records and not stub.calls
-    mod._launch(*args)
-    recorded = _error(lambda: mod._launch(*bad))
+    first = [_error(lambda: launch.launch(k, bad)) for _ in range(2)]
+    assert not k.records and not stub.calls
+    launch.launch(k, args)
+    recorded = _error(lambda: launch.launch(k, bad))
     assert len(stub.calls) == 1
     assert first[0] == first[1] == recorded, (first, recorded)
     assert words in first[0][1], first[0]
@@ -399,8 +399,8 @@ def test_direct_launches_are_counted_apart(stub):
     reset_launch_counts()
     for case in ("sep", "down", "up_feat_rgb"):
         kernel, args = _case(case)
-        MODS[kernel]._direct(*args)
-        MODS[kernel]._launch(*args)
+        launch.direct_launch(MODS[kernel].KERNEL, args)
+        launch.launch(MODS[kernel].KERNEL, args)
     assert launch_counts() == {"sepconv": 2, "downblock": 2, "upblock": 2}
     assert direct_launch_counts() == {"sepconv": 1, "downblock": 1,
                                       "upblock": 1}
@@ -416,7 +416,7 @@ def test_records_stay_right_under_racing_threads(stub, monkeypatch):
     sizes, and none raises."""
     import threading
 
-    monkeypatch.setattr(_build, "RECORDS_MAX", 3)
+    monkeypatch.setattr(launch, "RECORDS_MAX", 3)
     g = torch.Generator().manual_seed(5)
     sep = (_r(g, 3, 3, 16), _r(g, 16), _r(g, 16, 24))
     xs = [_r(g, n, 8, 6, 16) for n in range(1, 7)]
@@ -425,7 +425,8 @@ def test_records_stay_right_under_racing_threads(stub, monkeypatch):
     def work(i):
         try:
             for k in range(300):
-                sepconv._launch(xs[(i + k) % 6], *sep, None, True)
+                launch.launch(sepconv.KERNEL, (xs[(i + k) % 6], *sep, None,
+                                               True, None, None, None))
         except Exception as e:             # reported below
             errors.append(e)
 
@@ -455,14 +456,14 @@ def _shape_key(kernel, n, h, w, c, o, final_act, dtype):
         return torch.empty(*shape, dtype=dtype, device="meta")
 
     if kernel == "sepconv":
-        return sepconv._key(m(n, h, w, c), m(3, 3, c), m(c), m(c, o),
-                            m(h, w), final_act, None, None, None)
+        return launch.key((m(n, h, w, c), m(3, 3, c), m(c), m(c, o),
+                           m(h, w), final_act, None, None, None))
     if kernel == "downblock":
-        return downblock._key(m(n, h, w, c), m(3, 3, c), m(c), m(c, o))
+        return launch.key((m(n, h, w, c), m(3, 3, c), m(c), m(c, o)))
     hh, wh = 2 * h, 2 * w
-    return upblock._key(m(n, h, w, c), m(n, hh, wh, c), m(hh, wh),
-                        m(3, 3, c), m(c), m(c, o), m(hh, wh), m(o, 3), m(3),
-                        True, False)
+    return launch.key((m(n, h, w, c), m(n, hh, wh, c), m(hh, wh),
+                       m(3, 3, c), m(c), m(c, o), m(hh, wh), m(o, 3), m(3),
+                       True, False))
 
 
 @pytest.mark.parametrize("n", [1, 16])
@@ -475,11 +476,11 @@ def test_records_hold_the_plan_of_every_main_path_shape(res, n, stub):
             GeneratorConfig(resolution=res)):
         for dtype in (torch.float32, torch.bfloat16):
             key = _shape_key(kernel, n, h, w, c, o, final_act, dtype)
-            rec = MODS[kernel]._record(key)
+            rec = launch.record(MODS[kernel].KERNEL, key)
             want = plan.launch_plan(kernel, n, h, w, o, dtype)
             assert rec.plan == want, (kernel, h, w, c, o)
-            assert rec.head[:5] == (_build.DTYPE_CODES[dtype], want.config,
-                                    want.blocks, want.threads,
+            assert rec.head[:5] == (launch.DTYPE_CODES[dtype],
+                                    want.config, want.blocks, want.threads,
                                     want.smem_bytes)
             assert rec.dtype is dtype and rec.index == -1
 
