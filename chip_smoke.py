@@ -158,8 +158,10 @@ Builds the kernels from `migan_tpu_torch/csrc/` and then:
      direct (the wrapper, as an eager forward calls it) and through the
      op (`*_op`, as a traced program calls it), beside an aten add and
      a `torch.empty` of the output, each call timed alone and queued
-     in loops; a migan-256 forward's host ms at N = 1, and its
-     launches, each of which must be direct. Alone:
+     in loops; a migan-256 forward's host ms at N = 1, its launches,
+     each of which must be direct, its rgb folds (upblock launches given
+     the image of the level below; the fold share, which must be 1.0) and
+     its top-level ops under a dispatch mode (45). Alone:
      `python -c "import chip_smoke; chip_smoke.launch_cost_main()"`.
 
 Where the device time of a forward goes is measured apart from this, by
@@ -295,10 +297,9 @@ def max_err(a, b, dtype, what: str) -> float:
 # Phase 1: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def kernel_cases(n: int, dtype, gen: torch.Generator):
-    """(kernel, label, kernel call, plain call) at migan-512's shapes."""
-    from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
-
+def kernel_cases(n: int, dtype, gen: torch.Generator) -> list:
+    """A `Case` for each of a few calls at migan-512's shapes (their
+    flops are not used)."""
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to("cuda", dtype)
 
@@ -309,53 +310,40 @@ def kernel_cases(n: int, dtype, gen: torch.Generator):
     cases = []
     # encoder top conv1 (C = 64), and a synthesis conv1 low half (C = 512)
     for (h, c, o, fa) in ((512, 64, 64, True), (32, 512, 512, False)):
-        x = r(n, h, h, c)
-        w = sep_w(c, o)
-        cases.append(("sepconv", f"[{n},{h},{h},{c}]->{o} final_act={fa}",
-                      lambda x=x, w=w, fa=fa: sepconv.fused_block(
-                          x, *w, final_act=fa),
-                      lambda x=x, w=w, fa=fa: sepconv.sepconv_plain(
-                          x, *w, final_act=fa)))
+        cases.append(Case("sepconv", f"[{n},{h},{h},{c}]->{o} final_act={fa}",
+                          (r(n, h, h, c), *sep_w(c, o)), 0,
+                          {"final_act": fa}))
     if dtype == torch.float32:
         # scaled input: the +-256 clamp of both activations fires
-        x = r(n, 64, 64, 64, scale=400.)
-        w = sep_w(64, 64)
-        cases.append(("sepconv", f"[{n},64,64,64]->64 clamp",
-                      lambda x=x, w=w: sepconv.fused_block(x, *w),
-                      lambda x=x, w=w: sepconv.sepconv_plain(x, *w)))
+        cases.append(Case("sepconv", f"[{n},64,64,64]->64 clamp",
+                          (r(n, 64, 64, 64, scale=400.), *sep_w(64, 64)),
+                          0))
     # encoder conv2 at 512 (C = 64 -> 128) and at 32 (C = 512 -> 512)
     for (h, c, o) in ((512, 64, 128), (32, 512, 512)):
-        x = r(n, h, h, c)
-        w = sep_w(c, o)
-        cases.append(("downblock", f"[{n},{h},{h},{c}]->{o}",
-                      lambda x=x, w=w: downblock.fused_down_block(x, *w),
-                      lambda x=x, w=w: downblock.downblock_plain(x, *w)))
-    # synthesis top level (rgb only) and the level at 64 (C = 512)
+        cases.append(Case("downblock", f"[{n},{h},{h},{c}]->{o}",
+                          (r(n, h, h, c), *sep_w(c, o)), 0))
+    # synthesis top level (rgb only) and the level at 64 (C = 512), each
+    # given the image of the level below, as the forward calls them
     for (h, c, o, emit) in ((512, 64, 64, False), (64, 512, 512, True)):
         args = (r(n, h // 2, h // 2, c), r(n, h, h, c), r(h, h, scale=.3),
                 *sep_w(c, o), r(h, h, scale=.3), r(o, 3, scale=o ** -.5),
                 r(3, scale=.1))
-        cases.append(("upblock", f"[{n},{h // 2},{h // 2},{c}]->{o} "
-                      f"emit_features={emit}",
-                      lambda a=args, e=emit: upblock.fused_up_block(
-                          *a, emit_features=e),
-                      lambda a=args, e=emit: upblock.upblock_plain(
-                          *a, emit_features=e)))
+        cases.append(Case("upblock", f"[{n},{h // 2},{h // 2},{c}]->{o} "
+                          f"emit_features={emit} img_lo", args, 0,
+                          {"emit_features": emit,
+                           "img_lo": r(n, h // 2, h // 2, 3)}))
     return cases
 
 
 def phase_kernels(results: dict) -> None:
     gen = torch.Generator().manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
-        for name, label, fk, fp in kernel_cases(2, dtype, gen):
-            got, want = fk(), fp()
+        for case in kernel_cases(2, dtype, gen):
+            name, label = case.name, case.label
+            outs = _outs(case.kernel())
             torch.cuda.synchronize()
-            if isinstance(got, tuple):
-                errs = [max_err(a, b, dtype, f"{name} {label}")
-                        for a, b in zip(got, want)]
-            else:
-                errs = [max_err(got, want, dtype, f"{name} {label}")]
-            err = max(errs)
+            err = max(max_err(a, b, dtype, f"{name} {label}")
+                      for a, b in zip(outs, reference(case, outs, dtype)))
             atol, rtol = tolerance(dtype, label)
             print(f"phase1 {name} {label} {str(dtype)[6:]}: max|diff| "
                   f"{err:.3e} (atol {atol}, rtol {rtol})",
@@ -372,12 +360,10 @@ def phase_kernels(results: dict) -> None:
                 name, label = case.name, case.label
                 fk, fp = case.kernel, case.plain
                 ms, plain_ms = cuda_ms(fk), cuda_ms(fp)
-                got, want = fk(), fp()
+                outs = _outs(fk())
                 torch.cuda.synchronize()
-                outs = got if isinstance(got, tuple) else (got,)
-                wants = want if isinstance(want, tuple) else (want,)
                 err = max(max_err(a, b, dtype, f"{name} {label}")
-                          for a, b in zip(outs, wants))
+                          for a, b in zip(outs, reference(case, outs, dtype)))
                 bound_ms, bound_by = bound(case.inputs, outs, case.flops,
                                            dtype)
                 dt = str(dtype)[6:]
@@ -406,7 +392,8 @@ def phase_kernels(results: dict) -> None:
 @dataclass
 class Case:
     """One kernel call of a migan-512 forward: `args` the wrapper's
-    positional tensors, `kw` its flags, `flops` the pointwise product's."""
+    positional tensors, `kw` its keyword arguments (flags and img_lo),
+    `flops` the pointwise product's."""
 
     name: str
     label: str
@@ -447,7 +434,8 @@ class Case:
 def main_path_cases(n: int, dtype) -> list:
     """A `Case` for each distinct kernel shape of a migan-512 forward at
     batch n, in call order; upblock as the forward calls it (rgb only at
-    the top level). Seeded inputs made on the card."""
+    the top level, the image of the level below folded into rgb at every
+    level). Seeded inputs made on the card."""
     from migan_tpu_torch.models.migan_inference import GeneratorConfig
     from migan_tpu_torch.models.migan_kernels import kernel_shapes
 
@@ -482,9 +470,10 @@ def main_path_cases(n: int, dtype) -> list:
                     r(2 * h, 2 * w, scale=.3), r(o, 3, scale=o ** -.5),
                     r(3, scale=.1))
             cases.append(Case(name, f"x_lo [{n},{h},{w},{c}]->{o} "
-                              f"{'feat+rgb' if emit else 'rgb only'}",
+                              f"{'feat+rgb' if emit else 'rgb only'} img_lo",
                               args, 2 * n * 4 * h * w * c * o,
-                              {"emit_features": emit}))
+                              {"emit_features": emit,
+                               "img_lo": r(n, h, w, 3)}))
     return cases
 
 
@@ -514,6 +503,34 @@ def float64_check(case: Case, phase: int = 1) -> dict:
               f"{s} error against float64 {k[s]:.3e}, beyond "
               f"{F64_ERR_FACTOR}x the plain float32 version's {p[s]:.3e}")
     return {"f32_err_vs_f64": k, "plain_f32_err_vs_f64": p}
+
+
+def bf16_reference(case: Case, outs: tuple, phase: int) -> tuple:
+    """(the plain version in float32 on the case's bf16 inputs, [the
+    kernel's relative L2 from it, the plain bfloat16 version's]): the
+    reference of a bf16 call whose plain composition rounds two or three
+    times more than the kernel (phase 11's options; the rgb fold's up-2
+    FIR and add). Fails when the kernel is more than BF16_FACTOR times as
+    far from it as the plain bfloat16 version."""
+    wants = _outs(case.plain(torch.float32))
+    rel = [max(relative_l2(a, b) for a, b in zip(t, wants))
+           for t in (outs, _outs(case.plain()))]
+    what = f"{case.name} {case.label} bfloat16"
+    print(f"phase{phase} {what}: relative L2 to the plain version in "
+          f"float32: kernel {rel[0]:.4e}, plain bfloat16 {rel[1]:.4e}",
+          flush=True)
+    check(rel[0] <= BF16_FACTOR * rel[1],
+          f"{what}: kernel {rel[0]:.4e} from float32, beyond "
+          f"{BF16_FACTOR} x the plain path's {rel[1]:.4e}")
+    return wants, rel
+
+
+def reference(case: Case, outs: tuple, dtype) -> tuple:
+    """What phase 1 holds the kernel's outputs `outs` against: the plain
+    version, or `bf16_reference` where a bf16 call folds img_lo."""
+    if dtype == torch.bfloat16 and "img_lo" in case.kw:
+        return bf16_reference(case, outs, 1)[0]
+    return _outs(case.plain())
 
 
 # ---------------------------------------------------------------------------
@@ -2764,19 +2781,8 @@ def _option_row(case: Case, dtype, results: dict, time_it: bool) -> dict:
     else:
         # the options' plain compositions round two or three times more
         # than the kernels (x + skip; the prologue's conv, bias and act;
-        # the phase input's noise and act): the reference is the plain
-        # version in float32 on the same bf16 inputs, and the kernel may
-        # be at most BF16_FACTOR times as far from it in relative L2 as
-        # the plain bfloat16 version
-        wants = case.plain(torch.float32)
-        rel = [max(relative_l2(a, b) for a, b in zip(t, _outs(wants)))
-               for t in (outs, _outs(case.plain()))]
-        print(f"phase11 {what} {dt}: relative L2 to the plain version in "
-              f"float32: kernel {rel[0]:.4e}, plain bfloat16 {rel[1]:.4e}",
-              flush=True)
-        check(rel[0] <= BF16_FACTOR * rel[1],
-              f"{what} {dt}: kernel {rel[0]:.4e} from float32, beyond "
-              f"{BF16_FACTOR} x the plain path's {rel[1]:.4e}")
+        # the phase input's noise and act)
+        wants, rel = bf16_reference(case, outs, 11)
         row.update(rel_l2_vs_f32=rel[0], plain_bf16_rel_l2_vs_f32=rel[1])
     err = max(max_err(a, b, dtype, what)
               for a, b in zip(outs, _outs(wants)))
@@ -3161,6 +3167,7 @@ def phase_launch_cost(tmp: str, gpu: str) -> dict:
     printed as one JSON line."""
     from migan_tpu_torch.cli.demo import load_model
     from migan_tpu_torch.ops import kernels
+    from migan_tpu_torch.utils import tracing
     from migan_tpu_torch.ops.kernels import downblock, sepconv, upblock
 
     g = torch.Generator().manual_seed(SEED)
@@ -3216,10 +3223,18 @@ def phase_launch_cost(tmp: str, gpu: str) -> dict:
     forward(x)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    folds = kernels.rgb_fold_count()
     check(launches == kernels.direct_launch_counts()
           == {"sepconv": 16, "downblock": 6, "upblock": 6},
           f"phase13 forward: launches {launches}, direct "
           f"{kernels.direct_launch_counts()}")
+    check(folds == launches["upblock"],
+          f"phase13 forward: {folds} rgb folds in {launches['upblock']} "
+          f"upblock launches")
+    # the tier-1 test_kernel_chain_dispatches_few_ops holds the budget
+    with tracing.OpCount() as ops:
+        forward(x)
+    torch.cuda.synchronize()
     host = []
     for _ in range(40):
         t0 = time.perf_counter_ns()
@@ -3228,7 +3243,10 @@ def phase_launch_cost(tmp: str, gpu: str) -> dict:
         torch.cuda.synchronize()
     out["forward_256_n1"] = {"host_ms_median": statistics.median(host),
                              "host_ms_min": min(host),
-                             "launches": launches, "direct": launches}
+                             "launches": launches, "direct": launches,
+                             "rgb_folds": folds,
+                             "fold_share": folds / launches["upblock"],
+                             "ops": ops.total}
     print(f"phase13 launch cost {json.dumps(out)}", flush=True)
     return out
 

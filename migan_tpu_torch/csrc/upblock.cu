@@ -2,7 +2,7 @@
 //
 //     t    = act( up2_[1,3,3,1](x_lo) + noise_up ) + skip       at [Hh, Wh]
 //     feat = act( pw1x1( act( dw3x3(t) + b_dw ) ) [+ noise2] )
-//     rgb  = feat . w_rgb + b_rgb                               (optional)
+//     rgb  = feat . w_rgb + b_rgb [+ up2_[1,3,3,1](img_lo)]     (optional)
 //
 // Replaces migan_tpu/ops/pallas/upblock.py:fused_up_block, the hi-res half
 // of every synthesis level on the main path, with its torgb epilogue; at
@@ -42,6 +42,13 @@
 // second small launch adds them in output-tile order. No float atomics, so
 // rgb is the same from run to run.
 //
+// The rgb pyramid (optional img_lo [N, Hl, Wl, 3], with rgb): the image of
+// the level below, up-sampled by the same [1,3,3,1] FIR as x_lo, is added
+// to rgb in f32 before its one store, in the block itself with one output
+// tile and in rgb_sum_kernel with more. Each rgb value reads 1-4 of
+// img_lo's values (up2_rgb), so the generator's pyramid costs one
+// 3-channel read instead of a pass of its own.
+//
 // Phase input (PHASE, a template argument, so the main path's kernel is
 // compiled as before): x is [N, Hl, Wl, 4C], the four up-sampling phases
 // of ops/conv.py:pw_up2_phase, which folds the FIR into the preceding
@@ -80,6 +87,27 @@ struct Up {
                 "the rgb sums reuse the ring");
 };
 
+// img_lo (batch n, [Hl, Wl, 3]) up-sampled by the [1,3,3,1] FIR at hi-res
+// pixel (i, j), channel r: the x_lo stencil of phase 1 (along w, then
+// along h; x_lo = 0 outside its range), for one pixel from global memory
+template <typename T>
+__device__ __forceinline__ float up2_rgb(const T* __restrict__ img, int n,
+                                         int Hl, int Wl, int i, int j,
+                                         int r) {
+  const int ki = i >> 1, kj = j >> 1;                // always in range
+  const int ni = i & 1 ? ki + 1 : ki - 1;            // the .25 neighbours
+  const int nj = j & 1 ? kj + 1 : kj - 1;
+  const bool hi = ni >= 0 && ni < Hl, wi = nj >= 0 && nj < Wl;
+  const T* const b = img + (long long)n * Hl * Wl * CR + r;
+  auto at = [&](int h, int w) {
+    return to_f(b[((long long)h * Wl + w) * CR]);
+  };
+  const float row = fmaf(0.75f, at(ki, kj), 0.25f * (wi ? at(ki, nj) : 0.f));
+  const float nrow =
+      hi ? fmaf(0.75f, at(ni, kj), 0.25f * (wi ? at(ni, nj) : 0.f)) : 0.f;
+  return fmaf(0.75f, row, 0.25f * nrow);
+}
+
 }  // namespace
 
 template <typename T, typename G, bool PHASE>
@@ -88,9 +116,10 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
                    const T* __restrict__ noise_up, const T* __restrict__ wdw,
                    const T* __restrict__ bdw, const T* __restrict__ wpw,
                    const T* __restrict__ noise2, const T* __restrict__ wrgb,
-                   const T* __restrict__ brgb, T* __restrict__ feat,
-                   T* __restrict__ rgb, float* __restrict__ part, int N,
-                   int Hl, int Wl, int C, int O) {
+                   const T* __restrict__ brgb, const T* __restrict__ img,
+                   T* __restrict__ feat, T* __restrict__ rgb,
+                   float* __restrict__ part, int N, int Hl, int Wl, int C,
+                   int O) {
   using U = Up<T, G, PHASE>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const S0 = reinterpret_cast<T*>(smem + Ring<T, G>::BYTES);
@@ -306,22 +335,37 @@ __global__ void __launch_bounds__(G::THREADS, G::MIN_BLOCKS)
     for (int v = 0; v < G::WN; ++v) s += R[(lp * G::WN + v) * CR + r];
     const long long p = ((long long)n * Hh + i) * Wh + j;
     if (OT == 1)
-      rgb[p * CR + r] = from_f<T>(s + to_f(brgb[r]));
+      rgb[p * CR + r] = from_f<T>(
+          s + to_f(brgb[r]) +
+          (img != nullptr ? up2_rgb(img, n, Hl, Wl, i, j, r) : 0.f));
     else
       part[((long long)ot * NP + p) * CR + r] = s;
   }
 }
 
-// rgb = b_rgb + the output tiles' partial sums, added in tile order.
+// rgb = b_rgb + the output tiles' partial sums, added in tile order
+// [+ img_lo up-sampled].
 template <typename T>
 __global__ void rgb_sum_kernel(const float* __restrict__ part,
                                const T* __restrict__ brgb,
-                               T* __restrict__ rgb, long long n3, int OT) {
+                               const T* __restrict__ img,
+                               T* __restrict__ rgb, long long n3, int OT,
+                               int Hl, int Wl) {
+  const int Wh = 2 * Wl;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < n3; e += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int t = 0; t < OT; ++t) s += part[t * n3 + e];
-    rgb[e] = from_f<T>(s + to_f(brgb[e % CR]));
+    const int r = (int)(e % CR);
+    s += to_f(brgb[r]);
+    if (img != nullptr) {
+      const long long p = e / CR;
+      const int j = (int)(p % Wh);
+      const long long q = p / Wh;
+      s += up2_rgb(img, (int)(q / (2 * Hl)), Hl, Wl, (int)(q % (2 * Hl)), j,
+                   r);
+    }
+    rgb[e] = from_f<T>(s);
   }
 }
 
@@ -333,9 +377,9 @@ struct Launch {
     static int run(int blocks, int threads, int smem, const void* x,
                    const void* skip, const void* noise_up, const void* wdw,
                    const void* bdw, const void* wpw, const void* noise2,
-                   const void* wrgb, const void* brgb, void* feat, void* rgb,
-                   void* part, int N, int Hl, int Wl, int C, int O,
-                   cudaStream_t stream) {
+                   const void* wrgb, const void* brgb, const void* img,
+                   void* feat, void* rgb, void* part, int N, int Hl, int Wl,
+                   int C, int O, cudaStream_t stream) {
       using U = Up<T, G, PHASE>;
       const int OT = (O + G::TO - 1) / G::TO;
       const long long tiles = (long long)N *
@@ -343,21 +387,24 @@ struct Launch {
                               ((2 * Wl + U::TW - 1) / U::TW);
       if (threads != G::THREADS || smem != U::SMEM || blocks != tiles * OT ||
           C % 8 != 0 || O % 8 != 0 || (feat == nullptr && rgb == nullptr) ||
-          (rgb != nullptr && OT > 1 && part == nullptr))
+          (rgb != nullptr && OT > 1 && part == nullptr) ||
+          (img != nullptr && rgb == nullptr))
         return (int)cudaErrorInvalidConfiguration;
       cudaError_t err = allow_smem(upblock_kernel<T, G, PHASE>, smem);
       if (err != cudaSuccess) return (int)err;
       upblock_kernel<T, G, PHASE><<<blocks, threads, smem, stream>>>(
           (const T*)x, (const T*)skip, (const T*)noise_up, (const T*)wdw,
           (const T*)bdw, (const T*)wpw, (const T*)noise2, (const T*)wrgb,
-          (const T*)brgb, (T*)feat, (T*)rgb, (float*)part, N, Hl, Wl, C, O);
+          (const T*)brgb, (const T*)img, (T*)feat, (T*)rgb, (float*)part, N,
+          Hl, Wl, C, O);
       err = cudaGetLastError();
       if (err != cudaSuccess || rgb == nullptr || OT == 1) return (int)err;
       const long long n3 = (long long)N * (2 * Hl) * (2 * Wl) * CR;
       const long long want = (n3 + 255) / 256;
       const int sum_blocks = want < 2048 ? (int)want : 2048;
       rgb_sum_kernel<T><<<sum_blocks, 256, 0, stream>>>(
-          (const float*)part, (const T*)brgb, (T*)rgb, n3, OT);
+          (const float*)part, (const T*)brgb, (const T*)img, (T*)rgb, n3,
+          OT, Hl, Wl);
       return (int)cudaGetLastError();
     }
   };
@@ -368,22 +415,24 @@ struct Launch {
 // plan of migan_tpu_torch/ops/kernels/plan.py, checked here; mode: 0 x is
 // x_lo [N, Hl, Wl, C], 1 the phase input [N, Hl, Wl, 4C]. noise2 may be
 // null; feat or rgb may be null (not both); wrgb/brgb are read only when
-// rgb is not null; part, the f32 [O/TO, N*Hh*Wh, 3] scratch of the rgb
-// partial sums, is needed when rgb is not null and O > TO. C and O are
-// multiples of 8. Returns the CUDA error code of the launch (0 = success).
+// rgb is not null; img, the image of the level below [N, Hl, Wl, 3] whose
+// up-sample is added to rgb, may be null and needs rgb; part, the f32
+// [O/TO, N*Hh*Wh, 3] scratch of the rgb partial sums, is needed when rgb
+// is not null and O > TO. C and O are multiples of 8. Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int migan_upblock(int dtype, int cfg, int blocks, int threads,
                              int smem, int mode, const void* x,
                              const void* skip,
                              const void* noise_up, const void* wdw,
                              const void* bdw, const void* wpw,
                              const void* noise2, const void* wrgb,
-                             const void* brgb, void* feat, void* rgb,
-                             void* part, int N, int Hl, int Wl, int C, int O,
-                             void* stream) {
+                             const void* brgb, const void* img, void* feat,
+                             void* rgb, void* part, int N, int Hl, int Wl,
+                             int C, int O, void* stream) {
 #define MIGAN_UP(P)                                                       \
   dispatch<Launch<P>::L, UpCfg0, UpCfg1, UpCfg2>(                         \
       dtype, cfg, blocks, threads, smem, x, skip, noise_up, wdw, bdw, wpw, \
-      noise2, wrgb, brgb, feat, rgb, part, N, Hl, Wl, C, O,               \
+      noise2, wrgb, brgb, img, feat, rgb, part, N, Hl, Wl, C, O,          \
       (cudaStream_t)stream)
   if (mode == 0) return MIGAN_UP(false);
   if (mode == 1) return MIGAN_UP(true);

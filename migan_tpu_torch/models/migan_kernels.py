@@ -20,8 +20,10 @@ kernels, since a plain op is one more host dispatch on the card:
 
 so one forward at resolution 2^k launches 2k sepconv, k - 2
 downblock and k - 2 upblock kernels: 18 + 7 + 7 for migan-512, 16 + 6 + 6
-for migan-256. `fromrgb` stays a plain 1x1 conv and the rgb pyramid the
-plain `upsample2d`, as both are outside the Pallas kernels in JAX.
+for migan-256. The rgb pyramid's step, `img = upsample2d(img) + rgb`,
+runs in upblock's torgb epilogue (`img_lo`), so a level's image is one
+launch's output; `fromrgb` and the 4x4 level's torgb stay plain 1x1
+convs, as they are outside the Pallas kernels in JAX.
 """
 
 from __future__ import annotations
@@ -31,12 +33,11 @@ from typing import Dict, List, Tuple
 import torch
 from torch import nn
 
-from ..ops import upsample2d
 from ..ops.kernels import fused_block, fused_down_block, fused_up_block
 from ..utils import tracing
 from .migan_inference import (
     ACT, EncoderBlock, Generator, GeneratorConfig, SeparableConv,
-    SynthesisBlock, conv1x1_apply, resample_filter, _noise_for,
+    SynthesisBlock, conv1x1_apply, _noise_for,
 )
 
 
@@ -152,7 +153,6 @@ class KernelGenerator(nn.Module):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.generator
-        f = resample_filter(x.device)
         top = self.kernel_res[0]
 
         # ---- encoder ---------------------------------------------------
@@ -185,11 +185,13 @@ class KernelGenerator(nn.Module):
                 # resolution
                 n1, n2 = ((q.noise1, q.noise2) if (h, w) == (r, r)
                           else self._noise(r, h, w))
+                # the image of the level below up-sampled and added in the
+                # torgb epilogue
                 if r == top:
-                    rgb = fused_up_block(t, feats[r], n1, *w2, n2, q.w_rgb,
-                                         q.b_rgb, emit_features=False)
+                    img = fused_up_block(t, feats[r], n1, *w2, n2, q.w_rgb,
+                                         q.b_rgb, emit_features=False,
+                                         img_lo=img)
                 else:
-                    zz, rgb = fused_up_block(t, feats[r], n1, *w2, n2,
-                                             q.w_rgb, q.b_rgb)
-                img = upsample2d(img, f) + rgb
+                    zz, img = fused_up_block(t, feats[r], n1, *w2, n2,
+                                             q.w_rgb, q.b_rgb, img_lo=img)
         return img

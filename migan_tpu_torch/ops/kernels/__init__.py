@@ -34,7 +34,10 @@ makes one ctypes call.
 Each launch adds one to the tracer's counter `kernels.<kernel>.launches`
 (`utils/tracing.py`), and a direct one also to
 `kernels.<kernel>.direct_launches`: their ratio is the share of launches
-that skipped the op.
+that skipped the op. An upblock launch given the image of the level below
+(`img_lo`) adds one to `kernels.upblock.rgb_folds`: its ratio to upblock's
+launches is the share that folded the rgb pyramid's up-sample and add,
+1.0 over a `KernelGenerator` forward.
 """
 
 from ...utils import tracing
@@ -59,10 +62,17 @@ def direct_launch_counts() -> dict:
             for k in KERNELS}
 
 
+def rgb_fold_count() -> int:
+    """Upblock launches since the last reset that folded the rgb
+    pyramid's step (`img_lo`)."""
+    return tracing.counters().get("kernels.upblock.rgb_folds", 0)
+
+
 def reset_launch_counts() -> None:
-    """Zero both kinds of launch counts."""
+    """Zero every launch count, the rgb folds' included."""
     tracing.reset_counters("kernels.")
 
 
 __all__ = ["fused_block", "fused_down_block", "fused_up_block",
-           "launch_counts", "direct_launch_counts", "reset_launch_counts"]
+           "launch_counts", "direct_launch_counts", "rgb_fold_count",
+           "reset_launch_counts"]

@@ -35,7 +35,7 @@ SIGNATURES = {
     "migan_downblock": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "migan_upblock": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

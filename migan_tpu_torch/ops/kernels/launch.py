@@ -12,7 +12,8 @@ pointers and which of them must stay 16-byte aligned. The rest is here:
   of the call's `key`, built at the key's first launch after the full
   check; a later launch re-checks only what a key leaves open (each
   tensor's dtype, device and layout, and the alignment), allocates the
-  outputs, makes one ctypes call and counts `kernels.<k>.launches`.
+  outputs, makes one ctypes call and counts `kernels.<k>.launches` (and
+  `kernels.<k>.rgb_folds` where the call was given the kernel's `fold`).
 """
 
 from __future__ import annotations
@@ -50,15 +51,17 @@ class Kernel:
     arguments in its schema's order: `tensors` those that are tensors,
     `ins` the entry point's input pointers in its order (the outputs'
     follow), `aligned` the inputs it needs 16-byte aligned. A launch
-    returns `outs[returns]`."""
+    returns `outs[returns]`. `fold` is the slot of an optional input, the
+    rgb pyramid's image, that each launch given it counts in
+    `kernels.<kernel>.rgb_folds`."""
 
     __slots__ = ("name", "op", "entry", "launches", "direct_launches",
                  "check", "layout", "tensors", "ins", "aligned", "returns",
-                 "records")
+                 "fold", "folds", "records")
 
     def __init__(self, kernel: str, name: str, check: Callable,
                  layout: Callable, tensors: tuple, ins: tuple,
-                 aligned: tuple, returns):
+                 aligned: tuple, returns, fold: int | None = None):
         self.name = name                       # as its errors name it
         self.op = f"migan::{name}"
         self.entry = f"migan_{kernel}"
@@ -67,6 +70,7 @@ class Kernel:
         self.check, self.layout = check, layout
         self.tensors, self.ins, self.returns = tensors, ins, returns
         self.aligned = tuple(ins.index(i) for i in aligned)   # in `ins`
+        self.fold, self.folds = fold, f"kernels.{kernel}.rgb_folds"
         self.records: dict = {}                # key -> Record
 
 
@@ -115,11 +119,12 @@ def stream_handle(index: int) -> int:
 
 def launch(k: Kernel, args: tuple):
     """The CUDA kernel's launch (ctypes) on the op's arguments, one count
-    per launch. The first launch of a key runs `k.check` and keeps the
-    key's record (all of them dropped past RECORDS_MAX; building a record
-    twice gives the same record, so racing threads need no lock). A later
-    one runs `k.check` for its error only where what the key leaves open
-    fails: a tensor's dtype, device or layout, or an alignment."""
+    per launch (and one rgb fold where `k.fold` was given). The first
+    launch of a key runs `k.check` and keeps the key's record (all of
+    them dropped past RECORDS_MAX; building a record twice gives the same
+    record, so racing threads need no lock). A later one runs `k.check`
+    for its error only where what the key leaves open fails: a tensor's
+    dtype, device or layout, or an alignment."""
     at = key(args)
     rec = k.records.get(at)
     if rec is None:
@@ -151,6 +156,8 @@ def launch(k: Kernel, args: tuple):
         raise RuntimeError(f"{k.name}: kernel launch failed with CUDA "
                            f"error {err}")
     tracing.add(k.launches)
+    if k.fold is not None and args[k.fold] is not None:
+        tracing.add(k.folds)
     return outs[k.returns]
 
 

@@ -1,7 +1,9 @@
 """Fused up-sampling synthesis block:
 ``t = act(up2_[1,3,3,1](x_lo) + noise_up) + skip``;
 ``y = act(pw1x1(act(dw3x3(t) + b_dw)) [+ noise2])``;
-optional torgb epilogue ``rgb = y . w_rgb + b_rgb``.
+optional torgb epilogue ``rgb = y . w_rgb + b_rgb``, to which the rgb
+pyramid's ``up2_[1,3,3,1](img_lo)`` is added when an image of the level
+below is given.
 
 Port of `migan_tpu/ops/pallas/upblock.py::fused_up_block` as one CUDA
 kernel (`csrc/upblock.cu`: t once per hi-res pixel of a tile, pointwise
@@ -10,7 +12,11 @@ tensors. Its launch geometry comes from `plan.launch_plan`. With
 `phase_input=True` x_lo is `[N, Hl, Wl, 4C]`, the four up-sampling
 phases that `ops/conv.py::pw_up2_phase` computes with the FIR folded
 into the preceding pointwise conv, and the up-sample is a pure
-depth-to-space interleave (`_xla_up_block_phase` in JAX).
+depth-to-space interleave (`_xla_up_block_phase` in JAX). With `img_lo`
+[N, Hl, Wl, 3], the generator's rgb of the level below, the epilogue
+adds its up-sample by the same FIR (`ops/upfirdn2d.py::upsample2d`'s
+padding, zero borders) to rgb in float32 before rgb's one store; each
+launch given it adds one to the counter `kernels.upblock.rgb_folds`.
 
 The `torch.library` custom op `migan::fused_up_block` is the ctypes
 launch on CUDA (`launch.launch` of `KERNEL`), `upblock_plain`'s
@@ -52,12 +58,28 @@ def check_phase(name: str, x_lo: torch.Tensor, phase_input: bool) -> None:
                          f"channels, not a multiple of 4")
 
 
+def check_img_lo(name: str, x_lo: torch.Tensor, w_rgb, img_lo) -> None:
+    """Raise when an image of the level below comes without torgb, or is
+    not [N, Hl, Wl, 3] at x_lo's batch and size."""
+    if img_lo is None:
+        return
+    if w_rgb is None:
+        raise ValueError(f"{name}: img_lo needs w_rgb and b_rgb")
+    if img_lo.shape != (*x_lo.shape[:3], 3):
+        raise ValueError(f"{name}: img_lo {tuple(img_lo.shape)}, expected "
+                         f"{(*x_lo.shape[:3], 3)}")
+
+
+def _up2(x):
+    """x up-sampled by the [1,3,3,1] FIR."""
+    return upsample2d(x, setup_filter(FIR_TAPS, device=x.device), up=2)
+
+
 def _hires(x_lo, phase_input):
     """x_lo at the hi-res grid: the [1,3,3,1] up-2 FIR, or with
     phase_input the four phase groups interleaved (depth-to-space)."""
     if not phase_input:
-        return upsample2d(x_lo, setup_filter(FIR_TAPS, device=x_lo.device),
-                          up=2)
+        return _up2(x_lo)
     n, hl, wl, xc = x_lo.shape
     c = xc // 4
     return (x_lo.reshape(n, hl, wl, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
@@ -65,10 +87,11 @@ def _hires(x_lo, phase_input):
 
 
 def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-           emit_features=True, phase_input=False):
+           emit_features=True, phase_input=False, img_lo=None):
     """(features, rgb or None) in plain PyTorch, on the op's arguments:
     emit_features is the caller's to apply."""
     check_phase("upblock_plain", x_lo, phase_input)
+    check_img_lo("upblock_plain", x_lo, w_rgb, img_lo)
     t = _hires(x_lo, phase_input)
     t = ACT(t + noise_up[None, :, :, None]) + skip
     c = t.shape[-1]
@@ -78,22 +101,26 @@ def _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
         y = y + noise2[None, :, :, None]
     y = ACT(y)
     rgb = None if w_rgb is None else conv2d(y, w_rgb[None, None]) + b_rgb
+    if img_lo is not None:
+        rgb = _up2(img_lo) + rgb
     return y, rgb
 
 
 def upblock_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2=None,
                   w_rgb=None, b_rgb=None, emit_features=True,
-                  phase_input=False):
+                  phase_input=False, img_lo=None):
     """The same outputs as :func:`fused_up_block`, in plain PyTorch."""
     return _outputs(*_plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                            w_rgb, b_rgb, phase_input=phase_input),
+                            w_rgb, b_rgb, phase_input=phase_input,
+                            img_lo=img_lo),
                     emit_features)
 
 
 def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-           emit_features, phase_input) -> None:
+           emit_features, phase_input, img_lo=None) -> None:
     """Every check of a launch: raise on what the kernel does not take."""
     check_phase("fused_up_block", x_lo, phase_input)
+    check_img_lo("fused_up_block", x_lo, w_rgb, img_lo)
     n, hl, wl, c = x_lo.shape
     if phase_input:
         c //= 4
@@ -113,7 +140,7 @@ def _check(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
     launch.check_cuda_args("fused_up_block", x_lo.dtype, x_lo.device,
                            x_lo=x_lo, skip=skip, noise_up=noise_up,
                            w_dw=w_dw, b_dw=b_dw, w_pw=w_pw, noise2=noise2,
-                           w_rgb=w_rgb, b_rgb=b_rgb)
+                           w_rgb=w_rgb, b_rgb=b_rgb, img_lo=img_lo)
     plan.check_tc_args("fused_up_block", x_lo, w_pw)
     plan.check_tc_args("fused_up_block", skip, w_pw)
 
@@ -124,7 +151,7 @@ def _layout(key):
     over more than one output tile the tiles' float32 rgb partial sums,
     which a second launch adds in tile order."""
     (n, hl, wl, c), _, hw, _, _, (_, o), _, w_rgb, _, emit_features, \
-        phase_input, dtype, _ = key
+        phase_input, _, dtype, _ = key
     if phase_input:
         c //= 4
     mode = plan.UP_PHASE if phase_input else plan.UP_PLAIN
@@ -136,12 +163,14 @@ def _layout(key):
     return p, (mode,), (n, hl, wl, c, o), (feat, rgb, part)
 
 
-# the entry point's pointers: the nine tensor arguments in order, then
-# features, rgb and the partial sums; a launch returns (features or None,
-# rgb or None)
+# the entry point's pointers: the nine tensor arguments in order and
+# img_lo, then features, rgb and the partial sums; a launch returns
+# (features or None, rgb or None), and one given img_lo is counted in
+# `kernels.upblock.rgb_folds`
+_TENSORS = (*range(9), 11)
 KERNEL = launch.Kernel("upblock", "fused_up_block", _check, _layout,
-                       tensors=tuple(range(9)), ins=tuple(range(9)),
-                       aligned=(0, 1, 5), returns=slice(2))
+                       tensors=_TENSORS, ins=_TENSORS, aligned=(0, 1, 5),
+                       returns=slice(2), fold=11)
 
 
 def _pair(x_lo, feat, rgb):
@@ -157,24 +186,25 @@ def fused_up_block_op(x_lo: torch.Tensor, skip: torch.Tensor,
                       noise2: Optional[torch.Tensor],
                       w_rgb: Optional[torch.Tensor],
                       b_rgb: Optional[torch.Tensor], emit_features: bool,
-                      phase_input: bool = False
+                      phase_input: bool = False,
+                      img_lo: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     return _pair(x_lo, *launch.launch(KERNEL, (
         x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-        emit_features, phase_input)))
+        emit_features, phase_input, img_lo)))
 
 
 @fused_up_block_op.register_kernel("cpu")
 def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-      emit_features, phase_input=False):
+      emit_features, phase_input=False, img_lo=None):
     feat, rgb = _plain(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                       w_rgb, b_rgb, phase_input=phase_input)
+                       w_rgb, b_rgb, phase_input=phase_input, img_lo=img_lo)
     return _pair(x_lo, feat if emit_features else None, rgb)
 
 
 @fused_up_block_op.register_fake
 def _(x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-      emit_features, phase_input=False):
+      emit_features, phase_input=False, img_lo=None):
     n, hl, wl, _ = x_lo.shape
     hw = (2 * hl, 2 * wl)
     return _pair(x_lo,
@@ -189,17 +219,20 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
                    noise2: Optional[torch.Tensor] = None,
                    w_rgb: Optional[torch.Tensor] = None,
                    b_rgb: Optional[torch.Tensor] = None,
-                   emit_features: bool = True, phase_input: bool = False):
+                   emit_features: bool = True, phase_input: bool = False,
+                   img_lo: Optional[torch.Tensor] = None):
     """Fused up2 + noise + act + skip + dw3x3/pw1x1 (+noise2) + act
-    (+ torgb).
+    (+ torgb (+ the up-sampled image of the level below)).
 
     x_lo: [N, Hl, Wl, C], or with phase_input [N, Hl, Wl, 4C], whose
     channel group (ph * 2 + pw) * C + c is hi-res pixel (2i + ph,
     2j + pw) (`ops/conv.py::pw_up2_phase`); skip: [N, 2Hl, 2Wl, C];
     noise_up, noise2:
     [2Hl, 2Wl] pre-scaled noise; w_dw: [3, 3, C]; b_dw: [C]; w_pw: [C, O];
-    w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue. All contiguous and
-    of one dtype; C and O multiples of 8 on CUDA.
+    w_rgb: [O, 3] and b_rgb: [3] for the torgb epilogue; img_lo:
+    [N, Hl, Wl, 3], with w_rgb, makes rgb ``upsample2d(img_lo, [1,3,3,1])
+    + rgb``, the up-sample in float32 until rgb is stored. All contiguous
+    and of one dtype; C and O multiples of 8 on CUDA.
 
     Returns the features [N, 2Hl, 2Wl, O]; with w_rgb the tuple
     (features, rgb [N, 2Hl, 2Wl, 3]), or only rgb when emit_features is
@@ -212,5 +245,5 @@ def fused_up_block(x_lo: torch.Tensor, skip: torch.Tensor,
         raise ValueError("fused_up_block: no output requested")
     feat, rgb = launch.call(KERNEL, fused_up_block_op, _plain, (
         x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb,
-        emit_features, phase_input))
+        emit_features, phase_input, img_lo))
     return _outputs(feat, None if w_rgb is None else rgb, emit_features)

@@ -26,7 +26,8 @@ function range of its name (the profiler's C++ fast path,
 (from the threads the profiler records). The thread's CPU clock is a
 system call, so only the spans that are read for it take it.
 
-Counters are named integers, always on: `add(name, n)`.
+Counters are named integers, always on: `add(name, n)`. `OpCount` counts
+the ops a stretch of code dispatches.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.autograd.profiler as _profiler
+from torch.utils._python_dispatch import TorchDispatchMode
 
 RING = 1 << 16
 
@@ -244,3 +246,18 @@ def reset_counters(prefix: str = "") -> None:
     with _lock:
         for k in [k for k in _counts if k.startswith(prefix)]:
             del _counts[k]
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the ops dispatched inside it: `total` every op, aten ops
+    and each `migan::` kernel op as one (its plain version runs below the
+    mode), `kernels` the `migan::` ones."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = self.kernels = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.total += 1
+        self.kernels += func.namespace == "migan"
+        return func(*args, **(kwargs or {}))

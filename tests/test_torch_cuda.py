@@ -24,6 +24,12 @@ fused_up_block's phase input) at the JAX tests' shapes, migan-512's and
 ragged ones, with the same tolerances; in bfloat16 against the plain
 version in float32 on the same inputs (`_held_option`), and the border
 rows of the prologue's zero padding.
+
+fused_up_block's rgb fold (`img_lo`) at every upblock shape of migan-512
+and migan-256, with one output tile and several, against the plain
+composition (the kernel's rgb plus `upsample2d` of the image; float32
+atol/rtol 1e-6, the rounding of the FIR's sum) and against the plain
+version; its counter over a forward.
 """
 
 import os
@@ -38,7 +44,7 @@ from migan_tpu_torch.models.migan_kernels import kernel_shapes
 from migan_tpu_torch.ops.kernels import (
     direct_launch_counts, downblock, fused_block, fused_down_block,
     fused_up_block, launch, launch_counts, plan, reset_launch_counts,
-    sepconv, upblock,
+    rgb_fold_count, sepconv, upblock,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 2e-2)}
@@ -270,6 +276,119 @@ def test_upblock_ragged_tiles_match_plain(dev, n, hl, wl, c, o, cfg, dtype):
     args = _on(dev, *_up(rng, n, hl, wl, c, o), dtype=dtype)
     for emit in (True, False):
         _held(dev, "upblock", args, dtype, emit_features=emit)
+
+
+# ---------------------------------------------------------------------------
+# fused_up_block's rgb fold (img_lo): the rgb pyramid's up-2 FIR and add
+# ---------------------------------------------------------------------------
+
+# every upblock launch of a migan-512 and a migan-256 forward, (Hl, Wl, C,
+# O, emit_features): the top level stores no features
+def _fold_shapes():
+    shapes = set()
+    for res in (256, 512):
+        ups = [s for s in kernel_shapes(GeneratorConfig(resolution=res))
+               if s[0] == "upblock"]
+        top = max(s[1] for s in ups)
+        shapes |= {(h, w, c, o, h != top) for _, h, w, c, o, _ in ups}
+    return sorted(shapes)
+
+
+FOLD_SHAPES = _fold_shapes()
+# (n, Hl, Wl, C, O): ragged, non-square, one output tile and more
+FOLD_RAGGED = [(3, 35, 29, 64, 128), (3, 27, 21, 96, 128),
+               (2, 7, 5, 40, 200)]
+FOLD_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: TOL[torch.bfloat16]}
+
+
+def _held_fold(dev, args, dtype, emit):
+    """The fold against the plain composition on the card: the kernel's
+    own rgb without img_lo, plus `upsample2d` of img_lo (in float32 they
+    differ by the rounding of the FIR's sum alone; in bfloat16 the
+    composition rounds once more). The features equal those of the launch
+    without img_lo, bit for bit, and one launch counts one fold."""
+    from migan_tpu_torch.ops.filters import setup_filter
+    from migan_tpu_torch.ops.upfirdn2d import upsample2d
+
+    n, hl, wl = args[0].shape[:3]
+    img = _on(dev, _r(np.random.RandomState(hl + wl), n, hl, wl, 3),
+              dtype=dtype)[0]
+    reset_launch_counts()
+    got = _outs(fused_up_block(*args, emit_features=emit, img_lo=img))
+    torch.cuda.synchronize()
+    assert rgb_fold_count() == launch_counts()["upblock"] == 1
+    base = _outs(fused_up_block(*args, emit_features=emit))
+    assert rgb_fold_count() == 1 and launch_counts()["upblock"] == 2
+    up = upsample2d(img.float(), setup_filter([1, 3, 3, 1], device=dev))
+    want = (up + base[-1].float()).to(dtype)
+    atol, rtol = FOLD_TOL[dtype]
+    torch.testing.assert_close(got[-1].float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert len(got) == len(base) == (2 if emit else 1)
+    if emit:
+        assert torch.equal(got[0], base[0])
+    held = _held_option if n > 1 else _held
+    held(dev, "upblock", args, dtype, emit_features=emit, img_lo=img)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("shape", FOLD_SHAPES,
+                         ids=lambda s: "{}x{}-{}to{}-{}".format(*s))
+def test_upblock_rgb_fold_at_main_path_shapes(dev, shape, n, dtype):
+    """Every upblock shape of a migan-512 and a migan-256 forward, with
+    the outputs the main path asks for, with img_lo: one output tile
+    (rgb stored by the block) and two to eight (`rgb_sum_kernel`)."""
+    hl, wl, c, o, emit = shape
+    rng = np.random.RandomState(hl + c + n)
+    args = _on(dev, *_up(rng, n, hl, wl, c, o), dtype=dtype)
+    _held_fold(dev, args, dtype, emit)
+
+
+def test_fold_shapes_cover_both_rgb_stores():
+    """FOLD_SHAPES and FOLD_RAGGED hold shapes of one output tile and of
+    several, so the block's store and `rgb_sum_kernel` both fold."""
+    tiles = {plan.launch_plan("upblock", n, hl, wl, o, torch.float32)
+             .out_tiles > 1
+             for n in (1, 3) for hl, wl, _, o, _ in FOLD_SHAPES}
+    tiles |= {plan.launch_plan("upblock", n, hl, wl, o, torch.float32)
+              .out_tiles > 1 for n, hl, wl, _, o in FOLD_RAGGED}
+    assert tiles == {False, True}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,hl,wl,c,o", FOLD_RAGGED)
+def test_upblock_rgb_fold_at_ragged_shapes(dev, n, hl, wl, c, o, dtype):
+    """Partial tiles at the bottom and right edges, Hl != Wl, with both
+    outputs and with rgb only."""
+    rng = np.random.RandomState(c + o)
+    args = _on(dev, *_up(rng, n, hl, wl, c, o), dtype=dtype)
+    for emit in (True, False):
+        _held_fold(dev, args, dtype, emit)
+
+
+@pytest.mark.parametrize("res", [256, 512])
+def test_every_upblock_launch_of_a_forward_folds(dev, tmp_path, res):
+    """An eager forward through `load_model` folds the rgb pyramid at
+    every upblock launch (6 of 6 at migan-256, 7 of 7 at migan-512), and
+    a launch without img_lo counts no fold."""
+    from migan_tpu_torch.cli.demo import load_model
+
+    forward, _ = load_model(f"migan-{res}", _weights(tmp_path, res),
+                            device="cuda")
+    x = _on(dev, _r(np.random.RandomState(res), 1, res, res, 4))[0]
+    reset_launch_counts()
+    forward(x)
+    torch.cuda.synchronize()
+    assert rgb_fold_count() == launch_counts()["upblock"] == \
+        {256: 6, 512: 7}[res]
+    reset_launch_counts()
+    fused_up_block(*_on(dev, *_up(np.random.RandomState(0), 1, 4, 4, 64,
+                                  64)))
+    torch.cuda.synchronize()
+    assert launch_counts()["upblock"] == 1 and rgb_fold_count() == 0
 
 
 def test_wrappers_refuse_widths_the_kernels_do_not_take(dev):
@@ -715,7 +834,7 @@ def test_custom_ops_equal_their_ctypes_launch(dev, shape, dtype):
     rng = np.random.RandomState(h + c)
     if kernel == "upblock":
         args = [*_on(dev, *_up(rng, 1, h, w, c, o), dtype=dtype), True,
-                False]
+                False, None]
         op = torch.ops.migan.fused_up_block
     else:
         args = _on(dev, _r(rng, 1, h, w, c), *_sep(rng, c, o), dtype=dtype)
@@ -835,20 +954,32 @@ def _option_args(dev, option, dtype):
     if option == "up_rgb_only":
         return "upblock", [x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb,
                            b_rgb], {"emit_features": False}
+    if option.startswith("up_rgb_fold"):
+        # 32 x 32 -> 64 at N = 1: one output tile; at 8 x 8 -> 512 eight
+        if option.endswith("8_tiles"):
+            x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb, b_rgb = _on(
+                dev, *_up(rng, 1, 8, 8, 512, 512), dtype=dtype)
+        img = _on(dev, _r(rng, *x_lo.shape[:3], 3), dtype=dtype)[0]
+        return "upblock", [x_lo, skip, n1, w_dw, b_dw, w_pw, n2, w_rgb,
+                           b_rgb], {"emit_features": "only" not in option,
+                                    "img_lo": img}
     return "upblock", [x_lo, skip, n1, w_dw, b_dw, w_pw], {}   # features
 
 
 DIRECT_OPTIONS = ["sep_skip_4x4", "sep_prologue", "sep_no_act", "up_phase",
-                  "up_rgb_only", "up_features_only"]
+                  "up_rgb_only", "up_features_only", "up_rgb_fold",
+                  "up_rgb_fold_only", "up_rgb_fold_8_tiles"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("option", DIRECT_OPTIONS)
 def test_direct_path_equals_op_path_with_options(dev, option, dtype):
-    """The kernels' options, direct and through the op."""
+    """The kernels' options, direct and through the op (with img_lo, one
+    fold counted on each path)."""
     kernel, args, kw = _option_args(dev, option, dtype)
     _paths_bit_equal(kernel, args, **kw)
+    assert rgb_fold_count() == (2 if "img_lo" in kw else 0)
 
 
 def _misaligned_on(dev, shape):

@@ -74,20 +74,29 @@ def _case(name: str):
     hl, wl = h // 2, w // 2
     up = (_r(g, n, hl, wl, c), x, _r(g, h, w) * 0.1, *sep)
     rgb = (_r(g, o, 3) * 0.2, _r(g, 3))
+    img = _r(g, n, hl, wl, 3)
     if name == "up_feat":
-        return "upblock", (*up, None, None, None, True, False)
+        return "upblock", (*up, None, None, None, True, False, None)
     if name == "up_feat_rgb":
-        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, True, False)
+        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, True, False, None)
     if name == "up_rgb_only":
-        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, False, False)
+        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, False, False, None)
     if name == "up_phase":
         return "upblock", (_r(g, n, hl, wl, 4 * c), *up[1:], None, *rgb,
-                           True, True)
+                           True, True, None)
+    if name == "up_fold":
+        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, True, False, img)
+    if name == "up_fold_rgb_only":
+        return "upblock", (*up, _r(g, h, w) * 0.1, *rgb, False, False, img)
+    if name == "up_phase_fold":
+        return "upblock", (_r(g, n, hl, wl, 4 * c), *up[1:], None, *rgb,
+                           True, True, img)
     raise KeyError(name)
 
 
 CASES = ["sep", "sep_noise_no_act", "sep_skip", "sep_prologue", "down",
-         "up_feat", "up_feat_rgb", "up_rgb_only", "up_phase"]
+         "up_feat", "up_feat_rgb", "up_rgb_only", "up_phase", "up_fold",
+         "up_fold_rgb_only", "up_phase_fold"]
 
 
 def _call(kernel, args):
@@ -296,7 +305,7 @@ def _expected(kernel, args, out):
                 p.smem_bytes, *map(_p, (x, w_dw, b_dw, w_pw, out)), n, hh,
                 wh, c, o, STREAM]
     (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2, w_rgb, b_rgb, _,
-     phase) = args
+     phase, img_lo) = args
     n, hl, wl, c = x_lo.shape
     o = w_pw.shape[1]
     mode = plan.UP_PHASE if phase else plan.UP_PLAIN
@@ -305,7 +314,7 @@ def _expected(kernel, args, out):
     assert p.out_tiles == 1            # so no rgb partials (pointer 0)
     return ["migan_upblock", 0, p.config, p.blocks, p.threads, p.smem_bytes,
             mode, *map(_p, (x_lo, skip, noise_up, w_dw, b_dw, w_pw, noise2,
-                            w_rgb, b_rgb, feat, rgb)), 0, n, hl, wl,
+                            w_rgb, b_rgb, img_lo, feat, rgb)), 0, n, hl, wl,
             c // 4 if phase else c, o, STREAM]
 
 
@@ -313,10 +322,14 @@ def _expected(kernel, args, out):
 def test_launcher_passes_what_an_unrecorded_launch_would(case, stub):
     """The first launch of a key builds its record, the second hits it:
     both pass the entry point the plan, pointers and sizes computed
-    afresh, allocate outputs of the right shapes, and count a launch."""
+    afresh, allocate outputs of the right shapes, and count a launch, and
+    an rgb fold where upblock is given img_lo."""
+    from migan_tpu_torch.ops.kernels import rgb_fold_count
+
     kernel, args = _case(case)
     k = MODS[kernel].KERNEL
     before = launch_counts()[kernel]
+    folds = rgb_fold_count()
     for i in range(2):
         out = launch.launch(k, args)
         name, got = stub.calls[-1]
@@ -324,6 +337,8 @@ def test_launcher_passes_what_an_unrecorded_launch_would(case, stub):
             _expected(kernel, args, out)
         assert len(k.records) == 1
     assert launch_counts()[kernel] == before + 2
+    assert rgb_fold_count() == folds + (
+        2 if kernel == "upblock" and args[11] is not None else 0)
     if kernel == "upblock":
         feat, rgb = out
         x_lo, emit, has_rgb = args[0], args[9], args[7] is not None
@@ -396,16 +411,20 @@ def test_direct_launches_are_counted_apart(stub):
     `kernels.<k>.direct_launches`; `reset_launch_counts` zeroes both."""
     from migan_tpu_torch.ops.kernels import direct_launch_counts
 
+    from migan_tpu_torch.ops.kernels import rgb_fold_count
+
     reset_launch_counts()
-    for case in ("sep", "down", "up_feat_rgb"):
+    for case in ("sep", "down", "up_feat_rgb", "up_fold"):
         kernel, args = _case(case)
         launch.direct_launch(MODS[kernel].KERNEL, args)
         launch.launch(MODS[kernel].KERNEL, args)
-    assert launch_counts() == {"sepconv": 2, "downblock": 2, "upblock": 2}
+    assert launch_counts() == {"sepconv": 2, "downblock": 2, "upblock": 4}
     assert direct_launch_counts() == {"sepconv": 1, "downblock": 1,
-                                      "upblock": 1}
+                                      "upblock": 2}
+    assert rgb_fold_count() == 2
     reset_launch_counts()
     assert set(direct_launch_counts().values()) == {0}
+    assert rgb_fold_count() == 0
     assert not any(k.startswith("kernels.") for k in tracing.counters())
 
 
@@ -463,7 +482,7 @@ def _shape_key(kernel, n, h, w, c, o, final_act, dtype):
     hh, wh = 2 * h, 2 * w
     return launch.key((m(n, h, w, c), m(n, hh, wh, c), m(hh, wh),
                        m(3, 3, c), m(c), m(c, o), m(hh, wh), m(o, 3), m(3),
-                       True, False))
+                       True, False, m(n, h, w, 3)))
 
 
 @pytest.mark.parametrize("n", [1, 16])
@@ -471,7 +490,8 @@ def _shape_key(kernel, n, h, w, c, o, final_act, dtype):
 def test_records_hold_the_plan_of_every_main_path_shape(res, n, stub):
     """For every launch of a migan-256 and migan-512 forward, in both
     dtypes, the record's plan is `plan.launch_plan`'s and its arguments
-    carry it."""
+    carry it; upblock's, given img_lo as the chain gives it, holds img_lo
+    among the tensors a later launch re-checks."""
     for kernel, h, w, c, o, final_act in kernel_shapes(
             GeneratorConfig(resolution=res)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -483,6 +503,8 @@ def test_records_hold_the_plan_of_every_main_path_shape(res, n, stub):
                                     want.config, want.blocks, want.threads,
                                     want.smem_bytes)
             assert rec.dtype is dtype and rec.index == -1
+            if kernel == "upblock":          # every slot, img_lo's (11) too
+                assert rec.tensors == MODS[kernel].KERNEL.tensors
 
 
 # ---------------------------------------------------------------------------
